@@ -1,0 +1,163 @@
+"""Where the PyTorch port's batch-compress time goes, on one CUDA GPU.
+
+    python3 tools/torch_profile.py [--out DIR]     # DIR defaults to profile_out/
+
+Runs the bench batch (make_corpus(128 * 131072), 128 x 128 KB blocks) at
+SLICE_CONFIG through `compress_blocks_staged` and reports, each beside the
+card's name and power limit:
+
+1. Stage times by CUDA events. The inputs each pipeline function receives in
+   one batch are captured, then each function is timed alone on them:
+   find_matches, greedy_parse, parse_block (whole parse), the FSE state
+   chains, the bit deposit, encode_sequences_predefined (whole encode) and
+   the block assembly.
+2. A torch.profiler trace of one steady batch, written with a JSON summary
+   to DIR/torch_profile_trace.json: the device activities in it
+   (kernels, copies, sets), their busy time (union of intervals) against the
+   batch's time (the device's idle share), and device time by kernel name.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+B, N = 128, 131072
+
+
+def _time_ms(fn, iters: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_activity(trace_path: pathlib.Path, top: int = 20) -> dict:
+    """Device activities of a chrome trace: count, busy time (union of their
+    intervals, ms) and the `top` kernel names by summed time."""
+    doc = json.loads(trace_path.read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, None
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in dev):
+        if end is None or ts >= end:
+            busy += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy += ts + dur - end
+            end = ts + dur
+    by_name: dict[str, list] = {}
+    for e in dev:
+        r = by_name.setdefault(e["name"], [0, 0.0])
+        r[0] += 1
+        r[1] += e["dur"] / 1e3
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "device_activities": len(dev),
+        "device_busy_ms": busy / 1e3,
+        "top": [{"name": n, "count": c, "ms": ms} for n, (c, ms) in rows],
+    }
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=str(ROOT / "profile_out"), help="trace and summary directory")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from tpu_zstd_torch.corpus import make_corpus
+    from tpu_zstd_torch.ops import fse, lz77, pipeline
+    from tpu_zstd_torch.ops.pipeline import SLICE_CONFIG, compress_blocks_staged
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    cfg = SLICE_CONFIG
+    data = make_corpus(B * N)
+    blocks = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).reshape(B, N).copy()).cuda()
+    lengths = torch.full((B,), N, dtype=torch.int32, device="cuda")
+    compress_blocks_staged(blocks, lengths, cfg)  # builds the kernels, warms up
+    torch.cuda.synchronize()
+
+    # --- 1. stage times ----------------------------------------------------------------
+    sites = [
+        (lz77, "find_matches"), (lz77, "greedy_parse"), (pipeline, "parse_block"),
+        (fse, "_state_chain"), (fse, "deposit_bits"),
+        (pipeline, "encode_sequences_predefined"), (pipeline, "_assemble_one"),
+    ]
+    captured = {}
+    originals = {(m, a): getattr(m, a) for m, a in sites}
+
+    def recorder(mod, attr):
+        fn = originals[(mod, attr)]
+
+        def call(*args, **kw):
+            captured.setdefault(attr, (fn, args, kw))
+            return fn(*args, **kw)
+
+        return call
+
+    for m, a in sites:
+        setattr(m, a, recorder(m, a))
+    compress_blocks_staged(blocks, lengths, cfg)
+    torch.cuda.synchronize()
+    for m, a in sites:
+        setattr(m, a, originals[(m, a)])
+    stage = {}
+    for attr, (fn, args, kw) in captured.items():
+        stage[attr] = _time_ms(lambda: fn(*args, **kw))
+    batch_ms = _time_ms(lambda: compress_blocks_staged(blocks, lengths, cfg))
+    for attr, ms in stage.items():
+        print(f"stage [{card}] {attr}: {ms:.3f} ms")
+    print(f"stage [{card}] compress_blocks_staged (one batch, host read of nseq included): "
+          f"{batch_ms:.3f} ms")
+
+    # --- 2. profiler trace -------------------------------------------------------------
+    out_dir = pathlib.Path(opts.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compress_blocks_staged(blocks, lengths, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace_path = out_dir / "torch_profile_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    summary = {"card": card, "stage_ms": stage, "batch_ms": batch_ms, "wall_ms_profiled": wall_ms}
+    summary.update(_device_activity(trace_path))
+    busy = summary["device_busy_ms"]
+    print(f"profile [{card}]: {summary['device_activities']} device activities (kernels, copies, "
+          f"sets), device busy {busy:.3f} ms; idle share {1 - busy / batch_ms:.3f} of the "
+          f"unprofiled batch ({batch_ms:.3f} ms), {1 - busy / wall_ms:.3f} of the profiled one "
+          f"({wall_ms:.3f} ms)")
+    for row in summary["top"]:
+        print(f"profile [{card}]   {row['ms']:9.3f} ms  x{row['count']:5d}  {row['name'][:110]}")
+    (out_dir / "torch_profile.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps({"batch_ms": batch_ms, "device_busy_ms": busy, "wall_ms": wall_ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

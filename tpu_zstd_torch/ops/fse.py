@@ -1,0 +1,319 @@
+"""Batched FSE (tANS) sequence-section encoder with the predefined tables
+(RFC 8878 §3.1.1.3.2, compression mode 0).
+
+Counterpart of the predefined half of tpu_zstd/ops/fse_jax.py. The ANS
+state chain is sequential (state_t = T[sym_t, state_{t-1}]); as in the JAX
+package it is broken into CHUNK-sized chunks:
+
+  Phase A (parallel over chunks): evolve every possible entry state through
+          each chunk's symbols, giving each chunk's transition function.
+  Phase B: thread the real entry state through the chunk functions. The JAX
+          package scans the chunks; here the functions are composed by a
+          log-depth prefix scan (a gather per level), which gives the same
+          entry states in log2(chunks) steps.
+  Phase C (parallel over chunks): re-walk each chunk from its entry state,
+          recording the pre-transition states.
+
+The three streams (LL, OF, ML) run as one stack with their tables padded to
+a common shape. Table lookups are integer indexing where the JAX package
+uses exact bf16 one-hot contractions; an out-of-range index reads 0, as a
+one-hot of nothing does.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import (
+    LL_BITS,
+    LL_CODE_TABLE,
+    LL_DEFAULT_LOG,
+    LL_DEFAULT_NORM,
+    LL_DELTA_CODE,
+    ML_BITS,
+    ML_CODE_TABLE,
+    ML_DEFAULT_LOG,
+    ML_DEFAULT_NORM,
+    ML_DELTA_CODE,
+    OF_DEFAULT_LOG,
+    OF_DEFAULT_NORM,
+)
+from ..format.fse import build_ctable
+from .bitpack import deposit_bits, dynroll, place, words_to_bytes
+
+CHUNK = 64  # sequences per chunk in the state pre-pass
+
+
+class EncTables:
+    """Dense (symbol, state) -> (next_state, nb_bits) transition tables
+    (numpy; copied to a device at use)."""
+
+    def __init__(self, norm: np.ndarray, table_log: int):
+        ct = build_ctable(norm, table_log)
+        ts = 1 << table_log
+        nsym = len(norm)
+        u = np.arange(ts, dtype=np.int64)
+        value = ts + u  # zstd state "value" range [ts, 2*ts)
+        dnb = ct.delta_nb_bits.astype(np.int64)
+        dfs = ct.delta_find_state.astype(np.int64)
+        nb = (value[None, :] + dnb[:, None]) >> 16  # (nsym, ts)
+        idx = (value[None, :] >> nb) + dfs[:, None]
+        nxt = ct.state_table.astype(np.int64)[idx] - ts
+        # Init state per symbol (FSE_initCState2 semantics).
+        nb0 = (dnb + (1 << 15)) >> 16
+        v0 = (nb0 << 16) - dnb
+        init = ct.state_table.astype(np.int64)[(v0 >> nb0) + dfs] - ts
+
+        self.table_log = table_log
+        self.table_size = ts
+        self.num_symbols = nsym
+        self.next2d = nxt.astype(np.int32)       # (nsym, ts)
+        self.nb2d = nb.astype(np.int32)          # (nsym, ts)
+        self.init_state = init.astype(np.int32)  # (nsym,)
+
+
+_PREDEF_ENC = (
+    EncTables(LL_DEFAULT_NORM, LL_DEFAULT_LOG),
+    EncTables(OF_DEFAULT_NORM, OF_DEFAULT_LOG),
+    EncTables(ML_DEFAULT_NORM, ML_DEFAULT_LOG),
+)
+
+
+def predefined_enc_tables() -> tuple[EncTables, EncTables, EncTables]:
+    """(LL, OF, ML) encode tables for the RFC 8878 predefined distributions."""
+    return _PREDEF_ENC
+
+
+# --- Code mapping (value -> code) ---------------------------------------------------
+
+
+def highbit32(v: torch.Tensor) -> torch.Tensor:
+    """floor(log2(v)) for 1 <= v < 2^32, elementwise (int64)."""
+    v = v.to(torch.int64)
+    out = torch.zeros_like(v)
+    for shift in (16, 8, 4, 2, 1):
+        m = v >= (1 << shift)
+        out = out + torch.where(m, shift, 0)
+        v = torch.where(m, v >> shift, v)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device) -> dict:
+    """The constant tables as int64 tensors on `device`, copied there once
+    (a copy from host memory inside the pipeline would stall the stream)."""
+    tabs = predefined_enc_tables()
+
+    def stack(attr):
+        arrs = [getattr(t, attr).astype(np.int64) for t in tabs]
+        nsym = max(a.shape[0] for a in arrs)
+        pads = [[(0, nsym - a.shape[0])] + ([(0, 64 - a.shape[1])] if a.ndim == 2 else []) for a in arrs]
+        return np.stack([np.pad(a, p) for a, p in zip(arrs, pads)])
+
+    host = {
+        "LL_CODE_TABLE": LL_CODE_TABLE, "ML_CODE_TABLE": ML_CODE_TABLE,
+        "LL_BITS": LL_BITS, "ML_BITS": ML_BITS,
+        # (LL, OF, ML) stacked, zero-padded to 53 symbols x 64 states.
+        "next2d": stack("next2d"), "init_state": stack("init_state"), "nb2d": stack("nb2d"),
+        "table_size": np.array([t.table_size for t in tabs]),
+    }
+    return {k: torch.as_tensor(v.astype(np.int64), device=device) for k, v in host.items()}
+
+
+def _small_lut(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] from a tiny table; 0 where idx is out of range."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    return torch.where(ok, table[torch.clamp(idx, 0, table.shape[0] - 1)], 0)
+
+
+def ll_code(ll: torch.Tensor) -> torch.Tensor:
+    lut = _device_tables(ll.device)["LL_CODE_TABLE"]
+    return torch.where(
+        ll < 64,
+        _small_lut(lut, torch.clamp(ll, max=63)),
+        LL_DELTA_CODE + highbit32(torch.clamp(ll, min=1)),
+    )
+
+
+def ml_code(ml: torch.Tensor) -> torch.Tensor:
+    lut = _device_tables(ml.device)["ML_CODE_TABLE"]
+    base = ml - 3
+    return torch.where(
+        base < 128,
+        _small_lut(lut, torch.clamp(base, max=127)),
+        ML_DELTA_CODE + highbit32(torch.clamp(base, min=1)),
+    )
+
+
+def of_code(ob: torch.Tensor) -> torch.Tensor:
+    return highbit32(torch.clamp(ob, min=1))
+
+
+# --- State chains -------------------------------------------------------------------
+
+
+def _lookup(flat: torch.Tensor, base: torch.Tensor, nsym: int, ts: int, sym, state):
+    """flat[table t][sym, state] with t's offset `base` (broadcast); 0 where
+    sym is out of the padded range."""
+    ok = (sym >= 0) & (sym < nsym)
+    idx = base + torch.clamp(sym, 0, nsym - 1) * ts + state
+    return torch.where(ok, flat[idx], 0)
+
+
+def _state_chain_rt(next2d: torch.Tensor, init_table: torch.Tensor, rsym, nseq, max_seqs: int):
+    """States of T stacked FSE streams processed in encoder order.
+
+    next2d: (T, nsym, ts) transition tables; init_table: (T, nsym);
+    rsym: (T, B, max_seqs), rsym[t, b, i] = symbol of sequence nseq[b]-1-i of
+    stream t (i = 0 is the init symbol); transitions consume rsym[..., i]
+    for i in [1, nseq). Returns (pre_states (T, B, max_seqs), final (T, B)):
+    pre_states[..., i] is the state BEFORE consuming rsym[..., i].
+    """
+    T, nsym, ts = next2d.shape
+    _, B, ms = rsym.shape
+    nc = ms // CHUNK
+    dev = rsym.device
+    flat = next2d.reshape(-1)
+    base = (torch.arange(T, device=dev) * (nsym * ts)).view(T, 1, 1)
+    ok0 = (rsym[..., 0] >= 0) & (rsym[..., 0] < nsym)
+    init = torch.where(
+        ok0, torch.gather(init_table[:, None, :].expand(T, B, nsym), 2,
+                          torch.clamp(rsym[..., :1], 0, nsym - 1))[..., 0], 0
+    )
+    # Step s consumes rsym[s + 1]; lay steps out as (chunks, CHUNK).
+    st_sym = torch.roll(rsym, -1, -1).reshape(T, B, nc, CHUNK)
+    t_idx = torch.arange(ms, device=dev).reshape(nc, CHUNK)
+    st_valid = (t_idx + 1) < nseq.view(1, B, 1, 1)
+
+    # Phase A: per-chunk transition function over all ts entry states.
+    fn = torch.arange(ts, device=dev).expand(T, B, nc, ts)
+    base4 = base[..., None]
+    for i in range(CHUNK):
+        sym = st_sym[..., i : i + 1]
+        nxt = _lookup(flat, base4, nsym, ts, sym, fn)
+        fn = torch.where(st_valid[..., i : i + 1], nxt, fn)
+
+    # Phase B: inclusive prefix composition H[c] = fn[c] o ... o fn[0].
+    H = fn
+    d = 1
+    while d < nc:
+        comp = torch.gather(H[:, :, d:], 3, H[:, :, :-d])
+        H = torch.cat([H[:, :, :d], comp], dim=2)
+        d *= 2
+    at_init = torch.gather(H, 3, init[..., None, None].expand(T, B, nc, 1))[..., 0]
+    entries = torch.cat([init[..., None], at_init[..., :-1]], dim=-1)  # (T, B, nc)
+    final = at_init[..., -1]
+
+    # Phase C: re-walk each chunk from its entry state.
+    states = entries
+    pre = torch.empty((T, B, nc, CHUNK), dtype=torch.int64, device=dev)
+    for i in range(CHUNK):
+        pre[..., i] = states
+        nxt = _lookup(flat, base, nsym, ts, st_sym[..., i], states)
+        states = torch.where(st_valid[..., i], nxt, states)
+    pre_states = torch.roll(pre.reshape(T, B, ms), 1, -1)
+    return pre_states, final
+
+
+def _state_chain(rsym: torch.Tensor, nseq: torch.Tensor, max_seqs: int):
+    """The predefined (LL, OF, ML) tables over _state_chain_rt: rsym
+    (3, B, max_seqs) holds the LL, OF and ML symbols."""
+    t = _device_tables(rsym.device)
+    return _state_chain_rt(t["next2d"], t["init_state"], rsym, nseq, max_seqs)
+
+
+def encode_sequences_predefined(
+    ll: torch.Tensor,
+    ml: torch.Tensor,
+    ob: torch.Tensor,
+    nseq: torch.Tensor,
+    max_seqs: int,
+    out_bytes_cap: int,
+):
+    """Encode each block's sequences with the predefined FSE tables (mode 0).
+
+    ll/ml/ob: (B, max_seqs) int32 (entries >= nseq are ignored); nseq (B,).
+    Returns (section_bytes (B, out_bytes_cap + 8) uint8, section_len (B,)).
+    Emission order follows the JAX package (validated there against stock
+    libzstd).
+    """
+    tl, to, tm = predefined_enc_tables()
+    ms = max_seqs
+    B = ll.shape[0]
+    dev = ll.device
+    nseq = nseq.to(torch.int64)
+
+    # Reverse to encoder order once, all three fields in one roll:
+    # r[i] = x[nseq - 1 - i].
+    x3 = torch.stack([ll, ml, ob]).to(torch.int32).flip(-1)
+    r = dynroll(x3, ((nseq - ms) % ms)[None, :]).to(torch.int64)
+    r_ll, r_ml, r_ob = r[0], r[1], r[2]
+    r_llc = ll_code(r_ll)
+    r_mlc = ml_code(r_ml)
+    r_ofc = of_code(r_ob)
+    r_llb = _small_lut(_device_tables(dev)["LL_BITS"], r_llc)
+    r_mlb = _small_lut(_device_tables(dev)["ML_BITS"], r_mlc)
+    r_ofb = r_ofc
+
+    rsym = torch.stack([r_llc, r_ofc, r_mlc])
+    pre, fin = _state_chain(rsym, nseq, ms)
+    # Per-step state bit counts and (pre-masked) values; valid for 1 <= i < nseq.
+    tabs = _device_tables(dev)
+    T, nsym, ts = tabs["nb2d"].shape
+    base = (torch.arange(T, device=dev) * (nsym * ts)).view(T, 1, 1)
+    nb = _lookup(tabs["nb2d"].reshape(-1), base, nsym, ts, rsym, pre)
+    val = (tabs["table_size"].view(T, 1, 1) + pre) & ((1 << nb) - 1)
+    nb_ll, nb_of, nb_ml = nb[0], nb[1], nb[2]
+    v_ll, v_of, v_ml = val[0], val[1], val[2]
+
+    t_ar = torch.arange(ms, device=dev)
+    is_step = (t_ar >= 1) & (t_ar < nseq[:, None])
+    is_seq = t_ar < nseq[:, None]
+
+    # Three packed fields per i (write order: OF, ML, LL state bits; LL, ML,
+    # OF extra bits).
+    def mask(v, b):
+        return v & ((1 << b) - 1)
+
+    f1 = v_of | (v_ml << nb_of) | (v_ll << (nb_of + nb_ml))
+    l1 = torch.where(is_step, nb_of + nb_ml + nb_ll, 0)
+    f2 = mask(r_ll, r_llb) | (mask(r_ml - 3, r_mlb) << r_llb)
+    l2 = torch.where(is_seq, r_llb + r_mlb, 0)
+    f3 = mask(r_ob, r_ofb)
+    l3 = torch.where(is_seq, r_ofb, 0)
+    lens = torch.stack([l1, l2, l3], dim=-1).reshape(B, -1)
+    vals = torch.stack([f1, f2, f3], dim=-1).reshape(B, -1)
+
+    # Tail: flush ML, OF, LL states (table_log bits each) + sentinel 1-bit.
+    has = (nseq > 0).to(torch.int64)
+    tail_val = (
+        fin[2]
+        | (fin[1] << tm.table_log)
+        | (fin[0] << (tm.table_log + to.table_log))
+        | (1 << (tm.table_log + to.table_log + tl.table_log))
+    )
+    tail_len = has * (tm.table_log + to.table_log + tl.table_log + 1)
+    all_lens = torch.cat([lens, tail_len[:, None]], dim=1)
+    all_vals = torch.cat([vals, tail_val[:, None]], dim=1) & 0xFFFFFFFF
+
+    words, total_bits = deposit_bits(all_vals, all_lens, out_bytes_cap // 4)
+    stream_bytes = (total_bits + 7) >> 3
+
+    # Section header: nbSeq varint + mode byte (predefined = 0x00).
+    b0 = torch.where(nseq < 128, nseq, torch.where(nseq < 0x7F00, (nseq >> 8) + 0x80, 255))
+    b1 = torch.where(nseq < 0x7F00, nseq & 0xFF, (nseq - 0x7F00) & 0xFF)
+    b2 = ((nseq - 0x7F00) >> 8) & 0xFF
+    hdr_len = torch.where(nseq < 128, 1, torch.where(nseq < 0x7F00, 2, 3)) + has
+    zero = torch.zeros_like(nseq)
+    hdr = torch.stack(
+        [b0, torch.where(nseq < 128, 0, b1), torch.where(nseq < 0x7F00, 0, b2), zero], dim=1
+    ).to(torch.uint8)
+    # (mode byte 0x00 is already zero at position hdr_len - 1)
+
+    stream = words_to_bytes(words)
+    out_len_cap = out_bytes_cap + 8
+    out = place(hdr, hdr_len, 0, out_len_cap) + place(stream, has * stream_bytes, hdr_len, out_len_cap)
+    return out, hdr_len + has * stream_bytes

@@ -1,0 +1,312 @@
+"""Batched block compression pipeline and host frame assembly.
+
+Counterpart of tpu_zstd/ops/pipeline.py for the configuration with raw
+literals and the predefined FSE sequence tables (`SLICE_CONFIG`): the full
+LZ77 parse, the sequence-section encode and the frame, byte-identical to the
+JAX package at the same `PipelineConfig`. A batch is a (B, block_size) uint8
+tensor plus (B,) payload lengths; the work runs on the tensors' device.
+
+Staged as in the JAX package: the parse runs first, the host reads max(nseq)
+to pick a sequence-bucket width, then the encode and assembly run at that
+width. `compress_blocks_staged_many` keeps one batch's parse in flight while
+the previous batch's nseq crosses to the host.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constants import BLOCK_COMPRESSED, BLOCK_RAW, BLOCK_RLE, BLOCK_SIZE_MAX
+from ..format.frame import write_frame_header
+from .bitpack import place
+from .fse import encode_sequences_predefined
+from .lz77 import BlockSequences, parse_block
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline parameters; a copy of the JAX package's fields and defaults.
+    The port runs the subset `check_supported` accepts."""
+
+    block_size: int = BLOCK_SIZE_MAX
+    hash_log: int = 17
+    depth: int = 8
+    cap: int = 8
+    min_match: int = 4
+    lazy: bool = True
+    optimal: bool = False
+    dict_cap: int = 0
+    huffman_literals: bool = True
+    custom_fse: bool = True
+    seg_log: int = 10
+    ckpt_every: int = 0
+    lit_ckpt_every: int = 1024
+    of_gate: tuple = (8, 12)
+    mf_win_log: int = 13
+    ldm: bool = False
+    ldm_window: bool = False
+    sample_log: int = 0
+    dec_min_ml: int = 0
+
+    @property
+    def max_seqs(self) -> int:
+        return self.block_size // 4
+
+    def seq_cap_for(self, msb: int) -> int:
+        """Sequence-section byte capacity for an nseq bucket of msb entries
+        (40 bits per sequence plus header room, 4096-aligned)."""
+        return -(-((msb * 40) // 8 + 1024) // 4096) * 4096
+
+
+DEFAULT_CONFIG = PipelineConfig()
+# The configuration this port runs: raw literals, predefined FSE tables.
+SLICE_CONFIG = PipelineConfig(huffman_literals=False, custom_fse=False)
+
+
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for a setting the port does not run."""
+    off = {
+        "huffman_literals": cfg.huffman_literals,
+        "custom_fse": cfg.custom_fse,
+        "optimal": cfg.optimal,
+        "dict_cap": cfg.dict_cap,
+        "ckpt_every": cfg.ckpt_every,
+        "ldm": cfg.ldm,
+        "ldm_window": cfg.ldm_window,
+        "sample_log": cfg.sample_log,
+        "dec_min_ml": cfg.dec_min_ml,
+    }
+    on = [k for k, v in off.items() if v]
+    if on:
+        raise NotImplementedError(f"not supported by the port: {', '.join(on)}")
+    N, mw = cfg.block_size, cfg.mf_win_log
+    if cfg.min_match != 4:
+        raise NotImplementedError("only min_match 4 is supported")
+    if not (0 < mw < max(1, (N - 1).bit_length()) and N % (1 << mw) == 0):
+        raise NotImplementedError("mf_win_log must give windows smaller than the block")
+    if cfg.hash_log + 1 + mw > 32 or 2 * mw + max(4, cfg.cap.bit_length()) > 31:
+        raise NotImplementedError("hash_log / mf_win_log / cap exceed the packed sort keys")
+    if not (1 << min(mw, 11)) < N:
+        raise NotImplementedError("windowed extraction needs blocks above its window")
+    if cfg.seg_log > 10 or N % (1 << cfg.seg_log):
+        raise NotImplementedError("seg_log must be <= 10 and divide the block")
+    if cfg.cap >= 1 << 10:
+        raise NotImplementedError("cap must be < 1024")
+
+
+def config_from_reference(d: dict) -> PipelineConfig:
+    """The port's config from `dataclasses.asdict` of a JAX PipelineConfig.
+    Raises ValueError on an unknown field and NotImplementedError on a
+    setting the port does not run."""
+    names = {f.name for f in dataclasses.fields(PipelineConfig)}
+    unknown = sorted(set(d) - names)
+    if unknown:
+        raise ValueError(f"unknown PipelineConfig fields: {unknown}")
+    kw = dict(d)
+    if "of_gate" in kw:
+        kw["of_gate"] = tuple(kw["of_gate"])
+    cfg = PipelineConfig(**kw)
+    check_supported(cfg)
+    return cfg
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means CUDA; raise when CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda.is_available() is False")
+    return dev
+
+
+def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig) -> BlockSequences:
+    """Parse stage for a batch (one row per block; the JAX version is the
+    per-block function it vmaps)."""
+    return parse_block(
+        blocks,
+        lengths,
+        max_seqs=cfg.max_seqs,
+        hash_log=cfg.hash_log,
+        depth=cfg.depth,
+        cap=cfg.cap,
+        min_match=cfg.min_match,
+        lazy=cfg.lazy,
+        seg_log=cfg.seg_log,
+        of_gate=cfg.of_gate,
+        mf_win_log=cfg.mf_win_log,
+    )
+
+
+def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: PipelineConfig):
+    """Raw literal section + block-type decision + body composition, per row.
+
+    Returns (content (B, N) uint8, content_len (B,), block_type (B,)): the
+    block body without its 3-byte header (the frame assembler adds it, since
+    the `last` flag is frame-level).
+    """
+    N = cfg.block_size
+    B = blocks.shape[0]
+    n = n.to(torch.int64)
+
+    # Raw literals section header (RFC 8878 §3.1.1.3.1.1).
+    lit_hdr_len = torch.where(nlit < 32, 1, torch.where(nlit < 4096, 2, 3))
+    v2 = (nlit << 4) | (1 << 2)
+    v3 = (nlit << 4) | (3 << 2)
+    lh = torch.stack(
+        [
+            torch.where(nlit < 32, nlit << 3, torch.where(nlit < 4096, v2 & 0xFF, v3 & 0xFF)),
+            torch.where(nlit < 4096, (v2 >> 8) & 0xFF, (v3 >> 8) & 0xFF),
+            (v3 >> 16) & 0xFF,
+        ],
+        dim=1,
+    ).to(torch.uint8)
+
+    litcap = N + 4096
+    litsec = place(lh, lit_hdr_len, 0, litcap) + place(lits[:, :N], nlit, lit_hdr_len, litcap)
+    lit_sec_len = lit_hdr_len + nlit
+    body_len = lit_sec_len + seq_len
+
+    # Block type decision. RLE: the whole block is one repeated byte.
+    payload = blocks[:, :N]
+    pos = torch.arange(N, device=blocks.device)
+    all_same = ((payload != payload[:, :1]) & (pos < n[:, None])).sum(-1) == 0
+    is_rle = all_same & (n >= 2)
+    is_comp = ~is_rle & (body_len < n) & (nseq > 0)
+    btype = torch.where(is_rle, BLOCK_RLE, torch.where(is_comp, BLOCK_COMPRESSED, BLOCK_RAW))
+    content_len = torch.where(is_rle, 1, torch.where(is_comp, body_len, n))
+
+    # Body: literal section at 0 + sequence section rolled to lit_sec_len.
+    # The body is used only when body_len < n <= N.
+    body = place(litsec, lit_sec_len, 0, N) + place(seq_bytes, seq_len, lit_sec_len, N)
+    content = torch.where(
+        is_rle[:, None],
+        payload[:, :1].expand(B, N),
+        torch.where(is_comp[:, None], body, payload),
+    )
+    return content, content_len, btype
+
+
+def _parse_prep_stage(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig):
+    seqs = _parse_one(blocks, lengths, cfg)
+    return seqs, seqs.nseq
+
+
+def _encode_stage(blocks, lengths, seqs: BlockSequences, cfg: PipelineConfig, msb: int):
+    """Sequence encode at bucket width msb, then assembly."""
+    seq_bytes, seq_len = encode_sequences_predefined(
+        seqs.ll[:, :msb], seqs.ml[:, :msb], seqs.ob[:, :msb], seqs.nseq, msb,
+        cfg.seq_cap_for(msb),
+    )
+    return _assemble_one(
+        blocks, lengths, seqs.lits, seqs.nlit, seqs.nseq, seq_bytes, seq_len, cfg
+    )
+
+
+# Bucket ladder for the sequence encode: the smallest entry covering
+# max(nseq) sets the encode width (all multiples of the state-chain CHUNK).
+_BUCKETS = (2048, 4096, 8192, 12288, 16384, 20480, 21760, 24576, 28672)
+
+
+def _pick_bucket(bmax: int, full: int) -> int:
+    return next((b for b in _BUCKETS if b < full and bmax <= b), full)
+
+
+def compress_blocks_staged(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig):
+    """Batched block compression: blocks (B, N) uint8 + lengths (B,) ->
+    (contents (B, N) uint8, content_lens (B,), block_types (B,)), on the
+    blocks' device."""
+    check_supported(cfg)
+    seqs, nseq = _parse_prep_stage(blocks, lengths, cfg)
+    msb = _pick_bucket(int(nseq.max()), cfg.max_seqs)
+    return _encode_stage(blocks, lengths, seqs, cfg, msb)
+
+
+def compress_blocks_staged_many(batches, cfg: PipelineConfig):
+    """Pipelined staged compression over an iterable of (blocks, lengths).
+
+    Each batch's nseq goes to pinned host memory by a non-blocking copy
+    recorded with an event; the host reads it one batch later, so the
+    bucket choice does not stall the next batch's parse.
+    Returns a list of (contents, content_lens, block_types) device tuples.
+    """
+    check_supported(cfg)
+    results = []
+    pending = collections.deque()
+    for blocks, lengths in batches:
+        seqs, nseq = _parse_prep_stage(blocks, lengths, cfg)
+        if nseq.device.type == "cuda":
+            host = torch.empty(nseq.shape, dtype=nseq.dtype, pin_memory=True)
+            host.copy_(nseq, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = nseq, None
+        pending.append((blocks, lengths, seqs, host, ready))
+        if len(pending) >= 2:
+            results.append(_drain_one(pending, cfg))
+    while pending:
+        results.append(_drain_one(pending, cfg))
+    return results
+
+
+def _drain_one(pending, cfg: PipelineConfig):
+    blocks, lengths, seqs, host, ready = pending.popleft()
+    if ready is not None:
+        ready.synchronize()
+    msb = _pick_bucket(int(host.max()), cfg.max_seqs)
+    return _encode_stage(blocks, lengths, seqs, cfg, msb)
+
+
+# --- Host-side framing ---------------------------------------------------------------
+
+
+def _split_blocks(data: bytes, block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    n = len(data)
+    nblocks = max(1, -(-n // block_size))
+    blocks = np.zeros((nblocks, block_size), dtype=np.uint8)
+    lengths = np.zeros(nblocks, dtype=np.int32)
+    arr = np.frombuffer(data, dtype=np.uint8)
+    for b in range(nblocks):
+        chunk = arr[b * block_size : min((b + 1) * block_size, n)]
+        blocks[b, : len(chunk)] = chunk
+        lengths[b] = len(chunk)
+    return blocks, lengths
+
+
+def compress(
+    data: bytes, cfg: PipelineConfig = SLICE_CONFIG, checksum: bool = False, device=None
+) -> bytes:
+    """Single-shot compression of one buffer into one zstd frame, on `device`
+    (None means CUDA)."""
+    if checksum:
+        raise NotImplementedError("checksum=True is not supported by the port")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if len(data) == 0:
+        return write_frame_header(0) + (1).to_bytes(3, "little")  # empty raw last block
+    blocks, lengths = _split_blocks(data, cfg.block_size)
+    contents, clens, btypes = compress_blocks_staged(
+        torch.from_numpy(blocks).to(dev), torch.from_numpy(lengths).to(dev), cfg
+    )
+    contents = contents.cpu().numpy()
+    clens = clens.cpu().numpy()
+    btypes = btypes.cpu().numpy()
+    parts = [write_frame_header(len(data))]
+    nblocks = len(lengths)
+    for b in range(nblocks):
+        last = 1 if b == nblocks - 1 else 0
+        btype = int(btypes[b])
+        if btype == BLOCK_RLE:
+            hdr = (int(lengths[b]) << 3) | (BLOCK_RLE << 1) | last
+            parts.append(hdr.to_bytes(3, "little"))
+            parts.append(contents[b, :1].tobytes())
+        else:
+            clen = int(clens[b])
+            hdr = (clen << 3) | (btype << 1) | last
+            parts.append(hdr.to_bytes(3, "little"))
+            parts.append(contents[b, :clen].tobytes())
+    return b"".join(parts)
