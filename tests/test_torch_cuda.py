@@ -1,14 +1,18 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions, on
-a card. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
-exact equality. (One test item, like the other tests/test_torch_*.py files.)
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
+a card, and a DEFAULT_CONFIG frame made on the card against the one made on
+the CPU. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
+exact equality; the K5 state chains on their live range. (One test item,
+like the other tests/test_torch_*.py files.)
 """
 
 import jax  # noqa: F401  (JAX stays on the CPU; see conftest.py)
 import numpy as np
 import pytest
 import torch
+import torch_cases
 
-from tpu_zstd_torch.ops import concat, greedy, rep, roll
+from tpu_zstd_torch.corpus import make_corpus
+from tpu_zstd_torch.ops import chain, concat, greedy, pipeline, rep, roll
 
 
 def _t(a):
@@ -38,3 +42,16 @@ def test_cuda_kernels_match_plain():
     assert torch.equal(greedy.greedy_segments(packed), greedy.greedy_segments_plain(packed))
     p = _t((rng.integers(1, 6, (5, 700)) | 1 << 22).astype(np.int32)).to(dev)
     assert torch.equal(rep.rep_codes(p), rep.rep_codes_plain(p))
+    for name in ("chain_sequences", "chain_weights"):
+        i = torch_cases.CASES[name].inputs()
+        keys = ("st", "dnb", "dfs", "init", "tl", "rle", "rsym", "nseq")
+        args = [_t(i[k]).to(dev) for k in keys]
+        got = torch_cases._chain_live(*(x.cpu() for x in chain.state_chain3(*args)), i["nseq"])
+        want = torch_cases._chain_live(*(x.cpu() for x in chain.state_chain3_plain(*args)),
+                                       i["nseq"])
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
+    cfg = pipeline.PipelineConfig(block_size=16384, hash_log=13, mf_win_log=12)
+    data = make_corpus(5 * 16384)
+    assert pipeline.compress(data, cfg, True, device=dev) == pipeline.compress(
+        data, cfg, True, device="cpu")

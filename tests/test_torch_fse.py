@@ -1,12 +1,15 @@
 """The PyTorch port's predefined-table sequence encode (ops/fse.py) against
 the JAX reference (tpu_zstd/ops/fse_jax.py), plus the port's copies of the
-RFC tables. Integer outputs: exact equality."""
+RFC tables. Integer outputs: exact equality. The seeded predefined-encode
+case of tests/torch_cases.py also runs through both packages, held against
+tests/golden/torch_cases.json."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cases
 
 from tpu_zstd import constants as jc
 from tpu_zstd.ops import fse_jax as jf
@@ -21,6 +24,7 @@ def _torch_threads():
 
 def _check_constants_equal_reference():
     for name in ("ZSTD_MAGIC", "BLOCK_SIZE_MAX", "BLOCK_RAW", "BLOCK_RLE", "BLOCK_COMPRESSED",
+                 "SEQ_PREDEFINED", "SEQ_RLE", "SEQ_FSE",
                  "LL_DELTA_CODE", "ML_DELTA_CODE", "LL_DEFAULT_LOG", "ML_DEFAULT_LOG",
                  "OF_DEFAULT_LOG"):
         assert getattr(tc, name) == getattr(jc, name), name
@@ -33,7 +37,7 @@ def _check_predefined_enc_tables_equal_reference():
     for mine, ref in zip(tf.predefined_enc_tables(), jf.predefined_enc_tables()):
         assert (mine.table_log, mine.table_size, mine.num_symbols) == (
             ref.table_log, ref.table_size, ref.num_symbols)
-        for attr in ("next2d", "nb2d", "init_state"):
+        for attr in ("next2d", "nb2d", "init_state", "dnb", "dfs", "state_table"):
             np.testing.assert_array_equal(getattr(mine, attr), getattr(ref, attr), err_msg=attr)
 
 
@@ -102,3 +106,4 @@ def test_fse_matches_jax():
     _check_state_chain_matches_jax()
     for ms, nseq in [(2048, [2048, 0, 1, 127, 128, 1500]), (1024, [1024, 300])]:
         _check_encode_sequences_predefined_matches_jax(ms, nseq)
+    torch_cases.check_live("fse")

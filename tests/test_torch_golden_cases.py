@@ -1,0 +1,96 @@
+"""The PyTorch port against recorded JAX outputs, one test item per topic.
+
+Every case of tests/torch_cases.py rebuilds its inputs from a seed with
+numpy, runs the port's function on CPU tensors and compares the digest of
+its output exactly with the JAX package's, recorded in
+tests/golden/torch_cases.json by tools/make_torch_goldens.py. The cases
+cover the first slice (kernels K1-K4, bit deposit, the parse, the
+predefined-table encode, SLICE_CONFIG frames at 8-16 KB blocks) and the
+second (custom FSE tables per stream, the state chains, the Huffman stages,
+DEFAULT_CONFIG frames and level 1/3/5 item frames at 16 KB blocks, with and
+without checksum); stock libzstd (`zstandard`) decodes every port frame.
+
+This file imports neither JAX nor the JAX package and compiles nothing; it
+runs in a few seconds. It holds nine items: pytest-xdist's `--dist loadfile`
+queues files by item count, largest first, so with nine items it queues
+beside the nine-item reference files, after every reference file with more
+items, and the reference files keep the order and the workers they have
+without it. The live comparisons against the JAX package
+(tests/test_torch_{kernels,parse,fse,pipeline,fse_custom,huffman,
+manager}.py) also hold the recorded digests against the JAX package's live
+output.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+import torch_cases
+import zstandard
+
+# Topic -> the cases it checks; every case stands in exactly one topic.
+TOPICS = {
+    "kernels_k1_k4": ["roll_u8", "roll_i32", "concat", "greedy", "rep"],
+    "deposit_parse_predefined": ["deposit_scatter", "deposit_tree", "parse_8k",
+                                 "encode_predefined"],
+    "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
+    "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
+                   "choose_tables_of", "choose_tables_ml"],
+    "chains_encode": ["chain_sequences", "chain_weights", "prepare_sequences_auto",
+                      "encode_prepared"],
+    "huffman_stages": ["huffman_histogram", "huffman_lengths", "huffman_codes",
+                       "huffman_weights_header", "huffman_weights_fse", "huffman_4stream",
+                       "huffman_literals", "lit_compressed_header"],
+    "default_frames": ["frame_default_8k", "frame_default_16k", "frame_default_16k_checksum"],
+    "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64"],
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return torch_cases.load_golden()
+
+
+def _check_case(name, golden):
+    """The port's digest for case `name` equals the recorded one, and stock
+    libzstd decodes every frame it returns to its input."""
+    c = torch_cases.CASES[name]
+    inputs = c.inputs()
+    out = c.port(inputs)
+    assert torch_cases.digest(out) == golden[name], "differs from the recorded JAX output"
+    datas = inputs.get("items") or ([inputs["data"]] if "data" in inputs else [])
+    frames = [v for _, v in sorted(out.items()) if isinstance(v, bytes)]
+    assert len(frames) == len(datas)
+    dctx = zstandard.ZstdDecompressor()
+    for frame, data in zip(frames, datas):
+        assert dctx.decompress(frame, max_output_size=max(len(data), 1)) == data
+
+
+@pytest.mark.parametrize("topic", list(TOPICS))
+def test_port_equals_recorded_jax_output(topic, golden):
+    failed = {}
+    for name in TOPICS[topic]:
+        try:
+            _check_case(name, golden)
+        except AssertionError as e:
+            failed[name] = str(e) or "assertion failed"
+    assert not failed, failed
+
+
+def test_every_case_is_recorded_and_this_file_imports_no_jax(golden):
+    assert set(golden) == set(torch_cases.CASES)
+    in_topics = [n for names in TOPICS.values() for n in names]
+    assert sorted(in_topics) == sorted(torch_cases.CASES)
+    here = pathlib.Path(__file__).resolve().parent
+    for f in (here / "test_torch_golden_cases.py", here / "torch_cases.py"):
+        tree = ast.parse(f.read_text())
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        mods = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        mods += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "tpu_zstd")], f.name

@@ -8,7 +8,9 @@ The checks run as ONE test item. With `--dist loadfile` the test runner
 schedules files with more test items first; a file of one item is scheduled
 after every file of the reference package's suite, so adding the port's
 tests leaves that suite's schedule as it was. tests/test_torch_cuda.py holds
-the CUDA kernels against these plain versions on a card.
+the CUDA kernels against these plain versions on a card. The seeded cases of
+tests/torch_cases.py (group "kernels") also run through both packages here,
+held against tests/golden/torch_cases.json.
 """
 
 import jax
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cases
 
 from tpu_zstd.ops import bitpack as jbit
 from tpu_zstd.ops.lz77_jax import greedy_parse as jax_greedy_parse
@@ -171,3 +174,4 @@ def test_plain_kernels_and_bitpack_match_jax():
     for M in (300, 5000):  # the scatter deposit, then the tree deposit
         _check_deposit_bits_matches_jax(M)
     _check_shift_words_and_words_to_bytes_match_jax()
+    torch_cases.check_live("kernels")

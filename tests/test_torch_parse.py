@@ -4,7 +4,9 @@ Blocks come from the conftest corpus and a seeded mix; the JAX functions run
 on the CPU (XLA paths), the port's on CPU tensors (plain kernel versions).
 Outputs are integers: exact equality. 8 KB blocks with hash_log 13 and
 mf_win_log 12 exercise both the windowed match search (2 windows) and the
-windowed extraction (4 windows of 2 KB).
+windowed extraction (4 windows of 2 KB). The seeded parse case of
+tests/torch_cases.py also runs through both packages, held against
+tests/golden/torch_cases.json.
 """
 
 import jax
@@ -12,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cases
 
 from tpu_zstd.ops import lz77_jax as jl
 from tpu_zstd.ops.fse_jax import highbit32_jnp
@@ -125,3 +128,4 @@ def test_parse_matches_jax(corpus):
     _check_parse_block_matches_jax_field_for_field(batch)
     for lazy in (False, True):
         _check_greedy_parse_matches_jax(lazy)
+    torch_cases.check_live("parse")

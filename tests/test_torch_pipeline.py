@@ -4,9 +4,11 @@
 `tpu_zstd.ops.pipeline.compress` at the same `PipelineConfig` (raw literals,
 predefined FSE tables) on the conftest corpus and a bench-corpus slice;
 stock libzstd (`zstandard`) must decode every port frame. Bytes: exact
-equality. Also the port's configuration, corpus copy, import boundary and
-full-width goldens (tests/golden/torch_slice1.json, made by
-tools/make_torch_goldens.py; the full-width JAX graph is never built here).
+equality. Also the port's configuration, corpus copy, import boundary,
+full-width goldens (tests/golden/torch_slice{1,2}.json, made by
+tools/make_torch_goldens.py; the full-width JAX graph is never built here),
+and the seeded SLICE_CONFIG frame cases of tests/torch_cases.py against
+both packages and tests/golden/torch_cases.json.
 """
 
 import ast
@@ -17,6 +19,7 @@ import pathlib
 import jax  # noqa: F401  (JAX stays on the CPU; see conftest.py)
 import pytest
 import torch
+import torch_cases
 import zstandard
 
 import bench
@@ -91,6 +94,7 @@ def _check_config_from_reference():
     cfg = tp.config_from_reference(dataclasses.asdict(ref))
     assert cfg == tp.SLICE_CONFIG
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert tp.config_from_reference(dataclasses.asdict(jp.DEFAULT_CONFIG)) == tp.DEFAULT_CONFIG
     assert {f.name for f in dataclasses.fields(tp.PipelineConfig)} == {
         f.name for f in dataclasses.fields(jp.PipelineConfig)}
     with pytest.raises(ValueError):
@@ -98,9 +102,8 @@ def _check_config_from_reference():
 
 
 UNSUPPORTED = [
-    {"huffman_literals": True}, {"custom_fse": True}, {"optimal": True}, {"ldm": True},
-    {"dict_cap": 4096}, {"ckpt_every": 64}, {"sample_log": 1}, {"min_match": 3},
-    {"mf_win_log": 0},
+    {"optimal": True}, {"ldm": True}, {"dict_cap": 4096}, {"ckpt_every": 64},
+    {"sample_log": 1}, {"min_match": 3}, {"mf_win_log": 0},
 ]
 
 
@@ -111,16 +114,16 @@ def _check_unsupported_requests_raise():
             tp.config_from_reference({**dataclasses.asdict(ref), **change})
         with pytest.raises(NotImplementedError):
             tp.compress(b"abc" * 100, dataclasses.replace(tp.SLICE_CONFIG, **change), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tp.compress(b"abc", checksum=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tp.compress(b"abc")  # device=None means CUDA
 
 
 def _check_empty_input_frame(dctx):
-    frame = tp.compress(b"", device="cpu")
-    assert dctx.decompress(frame, max_output_size=1) == b""
+    for checksum in (False, True):
+        frame = tp.compress(b"", checksum=checksum, device="cpu")
+        assert frame == jp.compress(b"", checksum=checksum)
+        assert dctx.decompress(frame, max_output_size=1) == b""
 
 
 def _check_corpus_copy_equals_bench():
@@ -128,14 +131,20 @@ def _check_corpus_copy_equals_bench():
         assert corpus.make_corpus(n) == bench.make_corpus(n)
 
 
-def _check_golden_file():
-    doc = json.loads((ROOT / "tests" / "golden" / "torch_slice1.json").read_text())
-    blocks = doc["batch"]["blocks"]
-    assert len(blocks) == 128
-    assert all(set(b) == {"btype", "clen", "sha256"} and len(b["sha256"]) == 64 for b in blocks)
-    assert all(b["btype"] in (0, 1, 2) and 0 < b["clen"] <= 131072 for b in blocks)
-    assert doc["frame"]["len"] > 0 and len(doc["frame"]["sha256"]) == 64
-    assert tp.config_from_reference(doc["config"]) == tp.SLICE_CONFIG
+def _check_golden_files():
+    for name, cfg in (("torch_slice1.json", tp.SLICE_CONFIG),
+                      ("torch_slice2.json", tp.DEFAULT_CONFIG)):
+        doc = json.loads((ROOT / "tests" / "golden" / name).read_text())
+        blocks = doc["batch"]["blocks"]
+        assert len(blocks) == 128
+        assert all(set(b) == {"btype", "clen", "sha256"} and len(b["sha256"]) == 64
+                   for b in blocks)
+        assert all(b["btype"] in (0, 1, 2) and 0 < b["clen"] <= 131072 for b in blocks)
+        assert doc["frame"]["len"] > 0 and len(doc["frame"]["sha256"]) == 64
+        assert tp.config_from_reference(doc["config"]) == cfg
+    items = doc["items"]
+    assert items["level"] == 3 and len(items["sizes"]) == len(items["frames"])
+    assert all(64 * 1024 <= n <= 256 * 1024 for n in items["sizes"])
 
 
 def _imported_modules(path: pathlib.Path):
@@ -149,7 +158,10 @@ def _imported_modules(path: pathlib.Path):
 
 def _check_port_imports_no_jax_and_no_reference_package():
     files = sorted((ROOT / "tpu_zstd_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"tpu_zstd_torch/{m}.py" for m in (
+        "ops/chain", "ops/fse_tables", "ops/huffman", "format/xxhash", "api/config",
+        "api/manager")} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -166,5 +178,6 @@ def test_port_end_to_end(corpus):
     _check_unsupported_requests_raise()
     _check_empty_input_frame(dctx)
     _check_corpus_copy_equals_bench()
-    _check_golden_file()
+    _check_golden_files()
     _check_port_imports_no_jax_and_no_reference_package()
+    torch_cases.check_live("pipeline")

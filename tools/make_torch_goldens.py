@@ -1,18 +1,27 @@
-"""Write the full-width goldens the PyTorch port is held against.
+"""Write the goldens the PyTorch port is held against, from the JAX package.
 
-Runs the JAX reference (tpu_zstd) on the CPU at the port's configuration
-(raw literals, predefined FSE tables; every other field at DEFAULT_CONFIG)
-over the bench corpus:
+Runs the JAX reference (tpu_zstd) on the CPU over the bench corpus and
+records what it emits. Stock libzstd (`zstandard`) must decode every frame
+before anything is written. Targets (default: slice2 cases):
 
-- one batch of 128 x 128 KB blocks (bench.make_corpus(128 * 131072)):
-  per-block block type, content length and sha256 of the content;
-- one frame of make_corpus(4 * 131072) through `compress`: length and sha256.
+- slice1 -> tests/golden/torch_slice1.json, the port's first configuration
+  (raw literals, predefined FSE tables; every other field at DEFAULT_CONFIG):
+  one 128 x 128 KB batch (per block: type, content length, sha256 of the
+  content) and the frame of make_corpus(4 * 131072) through `compress`;
+- slice2 -> tests/golden/torch_slice2.json, at DEFAULT_CONFIG (Huffman
+  literals, custom FSE tables): the same batch, the 4-block frame with
+  checksum=True, and the level-3 `compress_items_tpu` frames of 16 items of
+  64-256 KB (consecutive slices of one corpus; their sizes are recorded);
+- cases -> tests/golden/torch_cases.json, the digest of every seeded case in
+  tests/torch_cases.py (small shapes: kernels, parse, table choice, state
+  chains, Huffman stages, frames at 8-16 KB blocks, levels 1/3/5).
 
-Stock libzstd (`zstandard`) must decode both frames before anything is
-written. The result goes to tests/golden/torch_slice1.json, which
-chip_smoke.py and the tier-1 tests read.
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [cases]
 
-    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py   # ~3 minutes
+About 4 minutes for slice1, 7 for slice2 and 6 for cases on the CPU. Give
+slice1 or slice2 a fresh process (or list it first): after the ~40 case
+compiles, XLA:CPU's compile of the full-width batch failed for lack of memory
+mappings in the same process.
 """
 
 from __future__ import annotations
@@ -28,28 +37,37 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 import zstandard  # noqa: E402
 
 from bench import make_corpus  # noqa: E402
+from tpu_zstd.api.config import CompressionConfig  # noqa: E402
+from tpu_zstd.api.manager import compress_items_tpu  # noqa: E402
 from tpu_zstd.constants import BLOCK_RLE  # noqa: E402
 from tpu_zstd.format.frame import write_frame_header  # noqa: E402
 from tpu_zstd.ops.pipeline import (  # noqa: E402
+    DEFAULT_CONFIG,
     PipelineConfig,
     _split_blocks,
     compress,
     compress_blocks_staged,
 )
 
-CFG = PipelineConfig(huffman_literals=False, custom_fse=False)
-OUT = ROOT / "tests" / "golden" / "torch_slice1.json"
+GOLDEN = ROOT / "tests" / "golden"
 BATCH_BLOCKS = 128
 FRAME_BLOCKS = 4
+ITEMS_SEED, ITEMS_COUNT = 2026, 16
+
+
+def _sha(b: bytes) -> str:
+    return hashlib.sha256(b).hexdigest()
 
 
 def _frame(lengths, contents, clens, btypes) -> bytes:
@@ -66,54 +84,95 @@ def _frame(lengths, contents, clens, btypes) -> bytes:
     return b"".join(parts)
 
 
-def main() -> None:
-    dctx = zstandard.ZstdDecompressor()
-    t0 = time.perf_counter()
-    data = make_corpus(BATCH_BLOCKS * CFG.block_size)
-    blocks, lengths = _split_blocks(data, CFG.block_size)
+def _decodes(frame: bytes, data: bytes, what: str) -> None:
+    if zstandard.ZstdDecompressor().decompress(frame, max_output_size=max(len(data), 1)) != data:
+        raise SystemExit(f"libzstd failed to decode {what}")
+
+
+def _batch(cfg: PipelineConfig) -> dict:
+    data = make_corpus(BATCH_BLOCKS * cfg.block_size)
+    blocks, lengths = _split_blocks(data, cfg.block_size)
     contents, clens, btypes = jax.device_get(
-        compress_blocks_staged(jnp.asarray(blocks), jnp.asarray(lengths), CFG)
+        compress_blocks_staged(jnp.asarray(blocks), jnp.asarray(lengths), cfg)
     )
-    frame = _frame(lengths, contents, clens, btypes)
-    if dctx.decompress(frame, max_output_size=len(data)) != data:
-        raise SystemExit("libzstd failed to decode the batch frame")
-    blocks_out = [
-        {
-            "btype": int(btypes[b]),
-            "clen": int(clens[b]),
-            "sha256": hashlib.sha256(contents[b, : int(clens[b])].tobytes()).hexdigest(),
-        }
-        for b in range(len(lengths))
-    ]
-    t_batch = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    small = make_corpus(FRAME_BLOCKS * CFG.block_size)
-    small_frame = compress(small, CFG)
-    if dctx.decompress(small_frame, max_output_size=len(small)) != small:
-        raise SystemExit("libzstd failed to decode the 4-block frame")
-    t_frame = time.perf_counter() - t0
-
-    body = sum(b["clen"] for b in blocks_out)
-    doc = {
-        "config": dataclasses.asdict(CFG),
-        "batch": {
-            "corpus": f"make_corpus({BATCH_BLOCKS} * {CFG.block_size})",
-            "block_body_ratio": len(data) / body,
-            "blocks": blocks_out,
-        },
-        "frame": {
-            "corpus": f"make_corpus({FRAME_BLOCKS} * {CFG.block_size})",
-            "len": len(small_frame),
-            "sha256": hashlib.sha256(small_frame).hexdigest(),
-        },
+    _decodes(_frame(lengths, contents, clens, btypes), data, "the batch frame")
+    out = [{"btype": int(btypes[b]), "clen": int(clens[b]),
+            "sha256": _sha(contents[b, : int(clens[b])].tobytes())} for b in range(len(lengths))]
+    return {
+        "corpus": f"make_corpus({BATCH_BLOCKS} * {cfg.block_size})",
+        "block_body_ratio": len(data) / sum(b["clen"] for b in out),
+        "blocks": out,
     }
-    OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps(doc, indent=1) + "\n")
-    counts = {t: sum(b["btype"] == t for b in blocks_out) for t in (0, 1, 2)}
-    print(f"batch {t_batch:.1f}s frame {t_frame:.1f}s btypes {counts} "
-          f"ratio {doc['batch']['block_body_ratio']:.4f} -> {OUT}")
+
+
+def _small_frame(cfg: PipelineConfig, checksum: bool) -> dict:
+    small = make_corpus(FRAME_BLOCKS * cfg.block_size)
+    frame = compress(small, cfg, checksum=checksum)
+    _decodes(frame, small, "the 4-block frame")
+    return {"corpus": f"make_corpus({FRAME_BLOCKS} * {cfg.block_size})", "checksum": checksum,
+            "len": len(frame), "sha256": _sha(frame)}
+
+
+def _write(name: str, doc: dict) -> None:
+    GOLDEN.mkdir(parents=True, exist_ok=True)
+    (GOLDEN / name).write_text(json.dumps(doc, indent=1) + "\n")
+
+
+def slice1() -> None:
+    cfg = PipelineConfig(huffman_literals=False, custom_fse=False)
+    doc = {"config": dataclasses.asdict(cfg), "batch": _batch(cfg)}
+    frame = _small_frame(cfg, checksum=False)
+    doc["frame"] = {k: frame[k] for k in ("corpus", "len", "sha256")}
+    _write("torch_slice1.json", doc)
+
+
+def slice2() -> None:
+    cfg = DEFAULT_CONFIG
+    doc = {"config": dataclasses.asdict(cfg), "batch": _batch(cfg),
+           "frame": _small_frame(cfg, checksum=True)}
+    rng = np.random.default_rng(ITEMS_SEED)
+    sizes = [int(s) for s in rng.integers(64 * 1024, 256 * 1024 + 1, ITEMS_COUNT)]
+    base = make_corpus(sum(sizes))
+    starts = np.cumsum([0] + sizes[:-1])
+    items = [base[s : s + n] for s, n in zip(starts, sizes)]
+    ccfg = CompressionConfig.from_level(3)
+    frames = compress_items_tpu(items, ccfg)
+    for f, d in zip(frames, items):
+        _decodes(f, d, "a level-3 item frame")
+    doc["items"] = {
+        "level": 3,
+        "corpus": "consecutive slices of make_corpus(sum(sizes))",
+        "sizes": sizes,
+        "frames": [{"len": len(f), "sha256": _sha(f)} for f in frames],
+    }
+    _write("torch_slice2.json", doc)
+
+
+def cases() -> None:
+    import torch_cases
+
+    out = {}
+    for name in torch_cases.CASES:
+        t0 = time.perf_counter()
+        out[name] = torch_cases.run_ref(name)
+        print(f"  case {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    _write("torch_cases.json", {"source": "tools/make_torch_goldens.py from tpu_zstd (JAX, CPU)",
+                                "cases": out})
+
+
+TARGETS = {"slice1": slice1, "slice2": slice2, "cases": cases}
+
+
+def main(argv: list[str]) -> None:
+    targets = argv or ["slice2", "cases"]
+    for t in targets:
+        if t not in TARGETS:
+            raise SystemExit(f"unknown target {t!r}")
+    for t in targets:
+        t0 = time.perf_counter()
+        TARGETS[t]()
+        print(f"{t}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

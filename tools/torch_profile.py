@@ -1,16 +1,21 @@
 """Where the PyTorch port's batch-compress time goes, on one CUDA GPU.
 
-    python3 tools/torch_profile.py [--out DIR]     # DIR defaults to profile_out/
+    python3 tools/torch_profile.py [--config default|slice] [--out DIR]
 
 Runs the bench batch (make_corpus(128 * 131072), 128 x 128 KB blocks) at
-SLICE_CONFIG through `compress_blocks_staged` and reports, each beside the
-card's name and power limit:
+DEFAULT_CONFIG (or SLICE_CONFIG) through `compress_blocks_staged` and
+reports, each beside the card's name and power limit:
 
 1. Stage times by CUDA events. The inputs each pipeline function receives in
    one batch are captured, then each function is timed alone on them:
-   find_matches, greedy_parse, parse_block (whole parse), the FSE state
-   chains, the bit deposit, encode_sequences_predefined (whole encode) and
-   the block assembly.
+   find_matches, greedy_parse, parse_block (whole parse); at DEFAULT_CONFIG
+   the table selection (prepare_sequences_auto), the K5 state chains, the
+   sequence bit deposit, encode_prepared (whole sequence encode), the Huffman
+   literals (compress_literals_huffman, and within it build_lengths,
+   weights_fse_payload, encode_literals_4stream and its deposit tree); at
+   SLICE_CONFIG the predefined state chains, the deposit and
+   encode_sequences_predefined; and the block assembly (which holds the
+   Huffman literals at DEFAULT_CONFIG).
 2. A torch.profiler trace of one steady batch, written with a JSON summary
    to DIR/torch_profile_trace.json: the device activities in it
    (kernels, copies, sets), their busy time (union of intervals) against the
@@ -82,19 +87,20 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "profile_out"), help="trace and summary directory")
+    ap.add_argument("--config", choices=("default", "slice"), default="default")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     from tpu_zstd_torch.corpus import make_corpus
-    from tpu_zstd_torch.ops import fse, lz77, pipeline
-    from tpu_zstd_torch.ops.pipeline import SLICE_CONFIG, compress_blocks_staged
+    from tpu_zstd_torch.ops import fse, huffman, lz77, pipeline
+    from tpu_zstd_torch.ops.pipeline import DEFAULT_CONFIG, SLICE_CONFIG, compress_blocks_staged
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    cfg = SLICE_CONFIG
+    cfg = DEFAULT_CONFIG if opts.config == "default" else SLICE_CONFIG
     data = make_corpus(B * N)
     blocks = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).reshape(B, N).copy()).cuda()
     lengths = torch.full((B,), N, dtype=torch.int32, device="cuda")
@@ -102,11 +108,18 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # --- 1. stage times ----------------------------------------------------------------
-    sites = [
-        (lz77, "find_matches"), (lz77, "greedy_parse"), (pipeline, "parse_block"),
-        (fse, "_state_chain"), (fse, "deposit_bits"),
-        (pipeline, "encode_sequences_predefined"), (pipeline, "_assemble_one"),
-    ]
+    sites = [(lz77, "find_matches"), (lz77, "greedy_parse"), (pipeline, "parse_block")]
+    if cfg.custom_fse:
+        sites += [(pipeline, "prepare_sequences_auto"), (fse, "state_chain3"),
+                  (fse, "deposit_bits"), (pipeline, "encode_prepared")]
+    else:
+        sites += [(fse, "_state_chain"), (fse, "deposit_bits"),
+                  (pipeline, "encode_sequences_predefined")]
+    if cfg.huffman_literals:
+        sites += [(pipeline, "compress_literals_huffman"), (huffman, "build_lengths"),
+                  (huffman, "weights_fse_payload"), (huffman, "encode_literals_4stream"),
+                  (huffman, "deposit_bits_tree")]
+    sites += [(pipeline, "_assemble_one")]
     captured = {}
     originals = {(m, a): getattr(m, a) for m, a in sites}
 
@@ -145,7 +158,8 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     trace_path = out_dir / "torch_profile_trace.json"
     prof.export_chrome_trace(str(trace_path))
-    summary = {"card": card, "stage_ms": stage, "batch_ms": batch_ms, "wall_ms_profiled": wall_ms}
+    summary = {"card": card, "config": opts.config, "stage_ms": stage, "batch_ms": batch_ms,
+               "wall_ms_profiled": wall_ms}
     summary.update(_device_activity(trace_path))
     busy = summary["device_busy_ms"]
     print(f"profile [{card}]: {summary['device_activities']} device activities (kernels, copies, "

@@ -19,6 +19,11 @@ BLOCK_RAW = 0
 BLOCK_RLE = 1
 BLOCK_COMPRESSED = 2
 
+# Sequence-section compression modes (2-bit fields of the modes byte)
+SEQ_PREDEFINED = 0
+SEQ_RLE = 1
+SEQ_FSE = 2
+
 # --- Literals-length codes (RFC 8878 table: code -> (baseline, nb extra bits)) --
 _LL_EXTRA = [(code, 0) for code in range(16)] + [
     (16, 1), (18, 1), (20, 1), (22, 1),

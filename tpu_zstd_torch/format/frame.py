@@ -1,7 +1,7 @@
 """Zstandard frame header writer, RFC 8878 §3.1.1.1 (host side).
 
 The port's copy of `write_frame_header` from tpu_zstd/format/frame.py, less
-the dictionary ID and explicit window log that no caller of the port sets.
+the dictionary ID, which no caller of the port sets.
 """
 
 from __future__ import annotations
@@ -9,11 +9,15 @@ from __future__ import annotations
 from ..constants import BLOCK_SIZE_MAX, ZSTD_MAGIC
 
 
-def write_frame_header(content_size: int | None, checksum: bool = False) -> bytes:
+def write_frame_header(
+    content_size: int | None, checksum: bool = False, window_log: int | None = None
+) -> bytes:
     """Frame_Header per RFC 8878 §3.1.1.1 (no dictionary ID; single segment
-    up to 1 MiB of content)."""
+    up to 1 MiB of content unless an explicit window_log is given)."""
     out = bytearray(ZSTD_MAGIC.to_bytes(4, "little"))
-    single_segment = content_size is not None and content_size <= (1 << 20)
+    single_segment = (
+        content_size is not None and content_size <= (1 << 20) and window_log is None
+    )
     if content_size is None:
         fcs_flag = 0
         fcs_bytes = b""
@@ -32,8 +36,9 @@ def write_frame_header(content_size: int | None, checksum: bool = False) -> byte
     fhd = (fcs_flag << 6) | (int(single_segment) << 5) | (int(checksum) << 2)
     out.append(fhd)
     if not single_segment:
-        cs = content_size if content_size else BLOCK_SIZE_MAX * 8
-        window_log = max(10, min(31, int(cs - 1).bit_length()))
+        if window_log is None:
+            cs = content_size if content_size else BLOCK_SIZE_MAX * 8
+            window_log = max(10, min(31, int(cs - 1).bit_length()))
         out.append((window_log - 10) << 3)  # mantissa 0
     out += fcs_bytes
     return bytes(out)

@@ -1,0 +1,91 @@
+"""XXH64 and the frame content checksum (RFC 8878 §3.1.1: low 32 bits of
+XXH64(content, seed=0)), host side.
+
+The port's copy of `xxh64` and `content_checksum` from
+tpu_zstd/format/xxhash.py, pure Python only: the reference's native C++ fast
+path is not part of the port, so a checksum over a few MB takes seconds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_M64 = (1 << 64) - 1
+
+P64_1 = 0x9E3779B185EBCA87
+P64_2 = 0xC2B2AE3D27D4EB4F
+P64_3 = 0x165667B19E3779F9
+P64_4 = 0x85EBCA77C2B2AE63
+P64_5 = 0x27D4EB2F165667C5
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _round64(acc: int, inp: int) -> int:
+    acc = (acc + inp * P64_2) & _M64
+    acc = _rotl64(acc, 31)
+    return (acc * P64_1) & _M64
+
+
+def _merge_round64(acc: int, val: int) -> int:
+    val = _round64(0, val)
+    acc ^= val
+    return (acc * P64_1 + P64_4) & _M64
+
+
+def xxh64(data: bytes | bytearray | memoryview | np.ndarray, seed: int = 0) -> int:
+    if isinstance(data, np.ndarray):
+        data = data.astype(np.uint8).tobytes()
+    data = bytes(data)
+    n = len(data)
+    pos = 0
+    if n >= 32:
+        v1 = (seed + P64_1 + P64_2) & _M64
+        v2 = (seed + P64_2) & _M64
+        v3 = seed & _M64
+        v4 = (seed - P64_1) & _M64
+        nstripes = n // 32
+        # Vectorized lane processing: numpy object-free path using python ints
+        # per stripe (lanes are a strict sequential chain; see header docstring).
+        words = np.frombuffer(data[: nstripes * 32], dtype="<u8").reshape(nstripes, 4)
+        for k in range(nstripes):
+            w = words[k]
+            v1 = _round64(v1, int(w[0]))
+            v2 = _round64(v2, int(w[1]))
+            v3 = _round64(v3, int(w[2]))
+            v4 = _round64(v4, int(w[3]))
+        pos = nstripes * 32
+        h = (_rotl64(v1, 1) + _rotl64(v2, 7) + _rotl64(v3, 12) + _rotl64(v4, 18)) & _M64
+        h = _merge_round64(h, v1)
+        h = _merge_round64(h, v2)
+        h = _merge_round64(h, v3)
+        h = _merge_round64(h, v4)
+    else:
+        h = (seed + P64_5) & _M64
+    h = (h + n) & _M64
+    while pos + 8 <= n:
+        k1 = _round64(0, int.from_bytes(data[pos : pos + 8], "little"))
+        h ^= k1
+        h = (_rotl64(h, 27) * P64_1 + P64_4) & _M64
+        pos += 8
+    if pos + 4 <= n:
+        h ^= (int.from_bytes(data[pos : pos + 4], "little") * P64_1) & _M64
+        h = (_rotl64(h, 23) * P64_2 + P64_3) & _M64
+        pos += 4
+    while pos < n:
+        h ^= (data[pos] * P64_5) & _M64
+        h = (_rotl64(h, 11) * P64_1) & _M64
+        pos += 1
+    h ^= h >> 33
+    h = (h * P64_2) & _M64
+    h ^= h >> 29
+    h = (h * P64_3) & _M64
+    h ^= h >> 32
+    return h
+
+
+def content_checksum(data: bytes) -> int:
+    """Frame content checksum: low 32 bits of XXH64(content, 0)."""
+    return xxh64(data, 0) & 0xFFFFFFFF

@@ -42,9 +42,10 @@ SIGNATURES = {
     "tz_concat_varlen": (P, P, P, P, I32, I32, I32, I32, P),
     "tz_greedy_segments": (P, P, I64, I32, P),
     "tz_rep_codes": (P, P, I32, I32, P),
+    "tz_state_chain3": (P,) * 11 + (I32, I32, I32, P),
 }
 
-launches = {"roll": 0, "concat": 0, "greedy": 0, "rep": 0}
+launches = {"roll": 0, "concat": 0, "greedy": 0, "rep": 0, "chain": 0}
 
 # Filled by the first build in this process: seconds spent in nvcc and the
 # assembler's register / shared-memory report (`-Xptxas -v`).
@@ -65,8 +66,6 @@ def _nvcc() -> str:
     if not found:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
     return found
-
-
 
 
 def library() -> ctypes.CDLL:

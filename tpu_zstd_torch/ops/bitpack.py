@@ -56,13 +56,15 @@ def deposit_bits(values: torch.Tensor, lengths: torch.Tensor, num_words: int):
     return words[:, :num_words] & M32, total_bits
 
 
-def deposit_bits_tree(values: torch.Tensor, lengths: torch.Tensor, num_words: int):
+def deposit_bits_tree(
+    values: torch.Tensor, lengths: torch.Tensor, num_words: int, max_field_bits: int = 32
+):
     """deposit_bits via pairwise tree concatenation, per row.
 
     Each field starts as a 1-word segment; adjacent segments merge level by
     level, B bit-shifted after A and word-rolled into place with `dynroll`.
-    Level-k segments hold at most 2^k * 32 bits, clamped to the output
-    capacity. Returns (words (B, num_words) int64, total_bits (B,)).
+    Level-k segments hold at most 2^k * max_field_bits bits, clamped to the
+    output capacity. Returns (words (B, num_words) int64, total_bits (B,)).
     """
     B, M = values.shape
     lengths = lengths.to(torch.int64)
@@ -70,7 +72,7 @@ def deposit_bits_tree(values: torch.Tensor, lengths: torch.Tensor, num_words: in
     words = (values.to(torch.int64) & _field_mask(lengths))[..., None]  # (B, segs, width)
     lens = lengths
     width = 1
-    cap_bits = 32
+    cap_bits = max_field_bits
     while words.shape[1] > 1:
         if words.shape[1] % 2:
             # Odd segment counts pad one empty segment per level.

@@ -1,9 +1,17 @@
-"""Batched FSE (tANS) sequence-section encoder with the predefined tables
-(RFC 8878 §3.1.1.3.2, compression mode 0).
+"""Batched FSE (tANS) sequence-section encoder (RFC 8878 §3.1.1.3.2).
 
-Counterpart of the predefined half of tpu_zstd/ops/fse_jax.py. The ANS
-state chain is sequential (state_t = T[sym_t, state_{t-1}]); as in the JAX
-package it is broken into CHUNK-sized chunks:
+Counterpart of tpu_zstd/ops/fse_jax.py. Two encoders:
+
+- `encode_sequences_predefined`: the predefined tables (compression mode 0)
+  for every block.
+- `prepare_sequences_auto` + `encode_prepared`: per-block, per-stream mode
+  selection (RLE, custom tables, predefined; ops/fse_tables.py), with the
+  state chains of all streams in one `chain.state_chain3` call (kernel K5 on
+  a card).
+
+In the predefined encoder the ANS state chain is sequential
+(state_t = T[sym_t, state_{t-1}]); as in the JAX package it is broken into
+CHUNK-sized chunks:
 
   Phase A (parallel over chunks): evolve every possible entry state through
           each chunk's symbols, giving each chunk's transition function.
@@ -26,6 +34,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..constants import (
     LL_BITS,
@@ -40,9 +49,11 @@ from ..constants import (
     ML_DELTA_CODE,
     OF_DEFAULT_LOG,
     OF_DEFAULT_NORM,
+    SEQ_RLE,
 )
 from ..format.fse import build_ctable
-from .bitpack import deposit_bits, dynroll, place, words_to_bytes
+from .bitpack import M32, deposit_bits, dynroll, place, words_to_bytes
+from .chain import state_chain3
 
 CHUNK = 64  # sequences per chunk in the state pre-pass
 
@@ -73,6 +84,10 @@ class EncTables:
         self.next2d = nxt.astype(np.int32)       # (nsym, ts)
         self.nb2d = nb.astype(np.int32)          # (nsym, ts)
         self.init_state = init.astype(np.int32)  # (nsym,)
+        # Closed-form params (see fse_tables.build_cf_tables).
+        self.dnb = dnb.astype(np.int32)                     # (nsym,)
+        self.dfs = dfs.astype(np.int32)                     # (nsym,)
+        self.state_table = ct.state_table.astype(np.int32)  # (ts,) in [ts, 2ts)
 
 
 _PREDEF_ENC = (
@@ -317,3 +332,155 @@ def encode_sequences_predefined(
     out_len_cap = out_bytes_cap + 8
     out = place(hdr, hdr_len, 0, out_len_cap) + place(stream, has * stream_bytes, hdr_len, out_len_cap)
     return out, hdr_len + has * stream_bytes
+
+
+# --- Per-block table selection (custom FSE) ------------------------------------------
+
+
+def prepare_sequences_auto(ll, ml, ob, nseq, max_seqs: int) -> dict:
+    """Bucket-independent half of the auto sequence encoder, per block.
+
+    ll/ml/ob (B, max_seqs) (entries >= nseq ignored), nseq (B,). Reverses to
+    encoder order, maps codes and builds each stream's tables (RLE / custom
+    FSE / predefined, ops/fse_tables.py). Stream-stacked entries are
+    (B, 3, ...) in LL, OF, ML order, alphabets padded to 53 symbols.
+    """
+    from .fse_tables import choose_stream_tables, stream_specs
+
+    spec_ll, spec_of, spec_ml = stream_specs()
+    ms = max_seqs
+    nseq = nseq.to(torch.int64)
+    dev = ll.device
+
+    # Reverse all three columns in one stacked flip + roll (same shift).
+    x3 = torch.stack([ll, ml, ob]).to(torch.int32).flip(-1)
+    r = dynroll(x3, ((nseq - ms) % ms)[None, :]).to(torch.int64)
+    r_ll, r_ml, r_ob = r[0], r[1], r[2]
+    r_llc = ll_code(r_ll)
+    r_mlc = ml_code(r_ml)
+    r_ofc = of_code(r_ob)
+
+    tabs = [choose_stream_tables(c, nseq, sp)
+            for c, sp in ((r_llc, spec_ll), (r_ofc, spec_of), (r_mlc, spec_ml))]
+    S = max(spec_ll.nsym, spec_of.nsym, spec_ml.nsym)
+
+    def stack(key, pad=False):
+        xs = [t[key] for t in tabs]
+        if pad:
+            xs = [F.pad(x, (0, S - x.shape[-1])) for x in xs]
+        return torch.stack(xs, 1)
+
+    d = _device_tables(dev)
+    return {
+        "r_ll": r_ll,
+        "r_ml": r_ml,
+        "r_ob": r_ob,
+        "rsym3": torch.stack([r_llc, r_ofc, r_mlc], 1),
+        "r_llb": _small_lut(d["LL_BITS"], r_llc),
+        "r_mlb": _small_lut(d["ML_BITS"], r_mlc),
+        "st3": stack("st"),
+        "dnb3": stack("dnb", pad=True),
+        "dfs3": stack("dfs", pad=True),
+        "init3": stack("init", pad=True),
+        "tl3": stack("table_log"),
+        "mode3": stack("mode"),
+        "desc_ll": tabs[0]["desc"],
+        "desc_of": tabs[1]["desc"],
+        "desc_ml": tabs[2]["desc"],
+        "dlen3": stack("desc_len"),
+    }
+
+
+def encode_prepared(prep: dict, nseq: torch.Tensor, msb: int, out_bytes_cap: int):
+    """Bucket-sized half: state chains, bit fields, deposit, section assembly.
+
+    msb >= max(nseq) (the caller picks the bucket); prep arrays are sliced to
+    msb (the reversed order puts every live entry in the prefix). The
+    3 x B state chains run as one `state_chain3` call. Returns
+    (section_bytes (B, out_bytes_cap + 8) uint8, section_len (B,)).
+    """
+    nseq = nseq.to(torch.int64)
+    rsym3 = prep["rsym3"][..., :msb]
+    B = rsym3.shape[0]
+    dev = rsym3.device
+    S = prep["dnb3"].shape[-1]
+    tl3 = prep["tl3"].to(torch.int64)
+    rle3 = prep["mode3"] == SEQ_RLE
+    pre3, fin3, nb3 = state_chain3(
+        prep["st3"].reshape(B * 3, -1), prep["dnb3"].reshape(B * 3, S),
+        prep["dfs3"].reshape(B * 3, S), prep["init3"].reshape(B * 3, S),
+        tl3.reshape(-1), rle3.reshape(-1), rsym3.reshape(B * 3, msb),
+        nseq.repeat_interleave(3),
+    )
+    t_ar = torch.arange(msb, device=dev)
+    is_step = (t_ar >= 1) & (t_ar < nseq[:, None])
+    is_seq = t_ar < nseq[:, None]
+    # Chain outputs count only for 1 <= t < nseq.
+    pre3 = torch.where(is_step[:, None], pre3.reshape(B, 3, msb).to(torch.int64), 0)
+    nb3 = torch.where(is_step[:, None], nb3.reshape(B, 3, msb).to(torch.int64), 0)
+    fin3 = fin3.reshape(B, 3).to(torch.int64)
+
+    v3 = ((1 << tl3)[..., None] + pre3) & ((1 << nb3) - 1)
+    nb_ll, nb_of, nb_ml = nb3[:, 0], nb3[:, 1], nb3[:, 2]
+    v_ll, v_of, v_ml = v3[:, 0], v3[:, 1], v3[:, 2]
+    r_ll = prep["r_ll"][:, :msb]
+    r_ml = prep["r_ml"][:, :msb]
+    r_ob = prep["r_ob"][:, :msb]
+    r_llb = prep["r_llb"][:, :msb]
+    r_mlb = prep["r_mlb"][:, :msb]
+    r_ofb = rsym3[:, 1].to(torch.int64)
+
+    def mask(v, b):
+        return v & ((1 << b) - 1)
+
+    # Three packed fields per t (write order: OF, ML, LL state bits; LL, ML,
+    # OF extra bits).
+    f1 = v_of | (v_ml << nb_of) | (v_ll << (nb_of + nb_ml))
+    l1 = torch.where(is_step, nb_of + nb_ml + nb_ll, 0)
+    f2 = mask(r_ll, r_llb) | (mask(r_ml - 3, r_mlb) << r_llb)
+    l2 = torch.where(is_seq, r_llb + r_mlb, 0)
+    f3 = mask(r_ob, r_ofb)
+    l3 = torch.where(is_seq, r_ofb, 0)
+    lens = torch.stack([l1, l2, l3], dim=-1).reshape(B, -1)
+    vals = torch.stack([f1, f2, f3], dim=-1).reshape(B, -1)
+
+    # Tail: flush ML, OF, LL states (table_log bits each) + sentinel 1-bit.
+    has = (nseq > 0).to(torch.int64)
+    tl_l, tl_o, tl_m = tl3[:, 0], tl3[:, 1], tl3[:, 2]
+    tail_val = (
+        fin3[:, 2]
+        | (fin3[:, 1] << tl_m)
+        | (fin3[:, 0] << (tl_m + tl_o))
+        | (1 << (tl_m + tl_o + tl_l))
+    )
+    tail_len = has * (tl_m + tl_o + tl_l + 1)
+    all_lens = torch.cat([lens, tail_len[:, None]], dim=1)
+    all_vals = torch.cat([vals, tail_val[:, None]], dim=1) & M32
+
+    words, total_bits = deposit_bits(all_vals, all_lens, out_bytes_cap // 4)
+    stream_bytes = (total_bits + 7) >> 3
+
+    # Section header: nbSeq varint, mode byte, then the LL, OF, ML table
+    # descriptions (RLE symbol or NCount header).
+    b0 = torch.where(nseq < 128, nseq, torch.where(nseq < 0x7F00, (nseq >> 8) + 0x80, 255))
+    b1 = torch.where(nseq < 0x7F00, nseq & 0xFF, (nseq - 0x7F00) & 0xFF)
+    b2 = ((nseq - 0x7F00) >> 8) & 0xFF
+    nb_len = torch.where(nseq < 128, 1, torch.where(nseq < 0x7F00, 2, 3))
+    zero = torch.zeros_like(nseq)
+    nbseq_hdr = torch.stack(
+        [b0, torch.where(nseq < 128, 0, b1), torch.where(nseq < 0x7F00, 0, b2), zero], dim=1
+    ).to(torch.uint8)
+    m3 = prep["mode3"].to(torch.int64)
+    mode_byte = ((m3[:, 0] << 6) | (m3[:, 1] << 4) | (m3[:, 2] << 2)).to(torch.uint8)
+    dlen3 = prep["dlen3"].to(torch.int64)
+    d_ll, d_of, d_ml = has * dlen3[:, 0], has * dlen3[:, 1], has * dlen3[:, 2]
+    hdr_total = nb_len + has + d_ll + d_of + d_ml
+
+    cap = out_bytes_cap + 8
+    out = place(nbseq_hdr, nb_len, 0, cap)
+    out = out + place(mode_byte[:, None], has, nb_len, cap)
+    out = out + place(prep["desc_ll"], d_ll, nb_len + has, cap)
+    out = out + place(prep["desc_of"], d_of, nb_len + has + d_ll, cap)
+    out = out + place(prep["desc_ml"], d_ml, nb_len + has + d_ll + d_of, cap)
+    out = out + place(words_to_bytes(words), has * stream_bytes, hdr_total, cap)
+    return out, hdr_total + has * stream_bytes

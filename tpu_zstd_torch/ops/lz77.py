@@ -156,11 +156,11 @@ def find_matches(
     gsp = sp + (torch.arange(nwin, device=dev) << mf_win_log)[:, None]
     best_ml = torch.minimum(best_ml, torch.clamp(n[:, None, None] - gsp, min=0))
 
-    # Back to position order: sp | ml | off pack into one unique key.
+    # Back to position order: sp | ml | off pack into one unique int64 key
+    # (the JAX package sorts a payload beside sp where this passes 31 bits;
+    # the order is the same, sp being unique within a window).
     mlb = max(4, cap.bit_length())
     low_bits = mf_win_log + mlb
-    if mf_win_log + low_bits > 31:
-        raise NotImplementedError("restore key exceeds 31 bits")
     key2 = (sp << low_bits) | (best_ml << mf_win_log) | best_off
     opk = torch.sort(key2, dim=-1).values.reshape(B, N)
     return (opk >> mf_win_log) & ((1 << mlb) - 1), opk & (W - 1)

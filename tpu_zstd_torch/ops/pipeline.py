@@ -1,10 +1,12 @@
 """Batched block compression pipeline and host frame assembly.
 
-Counterpart of tpu_zstd/ops/pipeline.py for the configuration with raw
-literals and the predefined FSE sequence tables (`SLICE_CONFIG`): the full
-LZ77 parse, the sequence-section encode and the frame, byte-identical to the
-JAX package at the same `PipelineConfig`. A batch is a (B, block_size) uint8
-tensor plus (B,) payload lengths; the work runs on the tensors' device.
+Counterpart of tpu_zstd/ops/pipeline.py: the full LZ77 parse, the literal
+section (Huffman or raw), the sequence section (per-block custom FSE tables
+or the predefined ones) and the frame, byte-identical to the JAX package at
+the same `PipelineConfig`. `DEFAULT_CONFIG` (Huffman literals, custom FSE) is
+the default, as there; `SLICE_CONFIG` (raw literals, predefined tables) stays
+as a named configuration. A batch is a (B, block_size) uint8 tensor plus (B,)
+payload lengths; the work runs on the tensors' device.
 
 Staged as in the JAX package: the parse runs first, the host reads max(nseq)
 to pick a sequence-bucket width, then the encode and assembly run at that
@@ -23,8 +25,10 @@ import torch
 
 from ..constants import BLOCK_COMPRESSED, BLOCK_RAW, BLOCK_RLE, BLOCK_SIZE_MAX
 from ..format.frame import write_frame_header
+from ..format.xxhash import content_checksum
 from .bitpack import place
-from .fse import encode_sequences_predefined
+from .fse import encode_prepared, encode_sequences_predefined, prepare_sequences_auto
+from .huffman import compress_literals_huffman, huff_payload_cap
 from .lz77 import BlockSequences, parse_block
 
 
@@ -64,15 +68,13 @@ class PipelineConfig:
 
 
 DEFAULT_CONFIG = PipelineConfig()
-# The configuration this port runs: raw literals, predefined FSE tables.
+# Raw literals and the predefined FSE tables (the port's first slice).
 SLICE_CONFIG = PipelineConfig(huffman_literals=False, custom_fse=False)
 
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for a setting the port does not run."""
     off = {
-        "huffman_literals": cfg.huffman_literals,
-        "custom_fse": cfg.custom_fse,
         "optimal": cfg.optimal,
         "dict_cap": cfg.dict_cap,
         "ckpt_every": cfg.ckpt_every,
@@ -89,8 +91,8 @@ def check_supported(cfg: PipelineConfig) -> None:
         raise NotImplementedError("only min_match 4 is supported")
     if not (0 < mw < max(1, (N - 1).bit_length()) and N % (1 << mw) == 0):
         raise NotImplementedError("mf_win_log must give windows smaller than the block")
-    if cfg.hash_log + 1 + mw > 32 or 2 * mw + max(4, cfg.cap.bit_length()) > 31:
-        raise NotImplementedError("hash_log / mf_win_log / cap exceed the packed sort keys")
+    if cfg.hash_log + 1 + mw > 32:
+        raise NotImplementedError("hash_log / mf_win_log exceed the packed sort key")
     if not (1 << min(mw, 11)) < N:
         raise NotImplementedError("windowed extraction needs blocks above its window")
     if cfg.seg_log > 10 or N % (1 << cfg.seg_log):
@@ -141,8 +143,27 @@ def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig)
     )
 
 
+def _lit_compressed_header(regen, comp, hdr_len) -> torch.Tensor:
+    """Compressed_Literals_Block header bytes (B, 5) (RFC 8878 §3.1.1.3.1.2):
+    LSB-first [type=2 (2b) | size_format (2b) | regen (rb) | comp (rb)] with
+    rb = 10/14/18 for size_format 1/2/3 (always 4 streams)."""
+    sf = hdr_len - 2                 # 3->1, 4->2, 5->3
+    rb = (hdr_len - 3) * 4 + 10      # 10/14/18
+    regen = regen & ((1 << rb) - 1)
+    low = 2 | (sf << 2) | (regen << 4)
+    shift_c = 4 + rb
+    out = []
+    for i in range(5):
+        # comp bits land at bit (4 + rb): for byte i they sit at 8i - (4 + rb).
+        s_pos = 8 * i - shift_c
+        right = (comp >> torch.clamp(s_pos, 0, 31)) & 0xFF
+        left = (comp << torch.clamp(-s_pos, 0, 31)) & 0xFF
+        out.append(((low >> (8 * i)) & 0xFF) | torch.where(s_pos >= 0, right, left))
+    return torch.stack(out, -1).to(torch.uint8)
+
+
 def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: PipelineConfig):
-    """Raw literal section + block-type decision + body composition, per row.
+    """Literal section + block-type decision + body composition, per row.
 
     Returns (content (B, N) uint8, content_len (B,), block_type (B,)): the
     block body without its 3-byte header (the frame assembler adds it, since
@@ -168,6 +189,21 @@ def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: Pipeline
     litcap = N + 4096
     litsec = place(lh, lit_hdr_len, 0, litcap) + place(lits[:, :N], nlit, lit_hdr_len, litcap)
     lit_sec_len = lit_hdr_len + nlit
+    if cfg.huffman_literals:
+        # Huffman literals where valid and smaller than the raw section.
+        hcap = huff_payload_cap(N)
+        hpay, hlen, h_ok = compress_literals_huffman(lits[:, :N], nlit, hcap)
+        h_hdr_len = torch.where(
+            (nlit < 1024) & (hlen < 1024), 3,
+            torch.where((nlit < 16384) & (hlen < 16384), 4, 5),
+        )
+        hh = _lit_compressed_header(nlit, hlen, h_hdr_len)
+        huff_total = h_hdr_len + hlen
+        use_h = h_ok & (huff_total < lit_sec_len)
+        litcap_h = max(N + 4096, hcap + 4096)
+        litsec_h = place(hh, h_hdr_len, 0, litcap_h) + place(hpay, hlen, h_hdr_len, litcap_h)
+        litsec = torch.where(use_h[:, None], litsec_h, place(litsec, lit_sec_len, 0, litcap_h))
+        lit_sec_len = torch.where(use_h, huff_total, lit_sec_len)
     body_len = lit_sec_len + seq_len
 
     # Block type decision. RLE: the whole block is one repeated byte.
@@ -197,10 +233,13 @@ def _parse_prep_stage(blocks: torch.Tensor, lengths: torch.Tensor, cfg: Pipeline
 
 def _encode_stage(blocks, lengths, seqs: BlockSequences, cfg: PipelineConfig, msb: int):
     """Sequence encode at bucket width msb, then assembly."""
-    seq_bytes, seq_len = encode_sequences_predefined(
-        seqs.ll[:, :msb], seqs.ml[:, :msb], seqs.ob[:, :msb], seqs.nseq, msb,
-        cfg.seq_cap_for(msb),
-    )
+    cap = cfg.seq_cap_for(msb)
+    ll, ml, ob = seqs.ll[:, :msb], seqs.ml[:, :msb], seqs.ob[:, :msb]
+    if cfg.custom_fse:
+        prep = prepare_sequences_auto(ll, ml, ob, seqs.nseq, msb)
+        seq_bytes, seq_len = encode_prepared(prep, seqs.nseq, msb, cap)
+    else:
+        seq_bytes, seq_len = encode_sequences_predefined(ll, ml, ob, seqs.nseq, msb, cap)
     return _assemble_one(
         blocks, lengths, seqs.lits, seqs.nlit, seqs.nseq, seq_bytes, seq_len, cfg
     )
@@ -278,16 +317,16 @@ def _split_blocks(data: bytes, block_size: int) -> tuple[np.ndarray, np.ndarray]
 
 
 def compress(
-    data: bytes, cfg: PipelineConfig = SLICE_CONFIG, checksum: bool = False, device=None
+    data: bytes, cfg: PipelineConfig = DEFAULT_CONFIG, checksum: bool = False, device=None
 ) -> bytes:
     """Single-shot compression of one buffer into one zstd frame, on `device`
-    (None means CUDA)."""
-    if checksum:
-        raise NotImplementedError("checksum=True is not supported by the port")
+    (None means CUDA). checksum=True appends the content checksum."""
     check_supported(cfg)
     dev = resolve_device(device)
+    tail = [content_checksum(data).to_bytes(4, "little")] if checksum else []
     if len(data) == 0:
-        return write_frame_header(0) + (1).to_bytes(3, "little")  # empty raw last block
+        # Empty raw last block.
+        return b"".join([write_frame_header(0, checksum), (1).to_bytes(3, "little"), *tail])
     blocks, lengths = _split_blocks(data, cfg.block_size)
     contents, clens, btypes = compress_blocks_staged(
         torch.from_numpy(blocks).to(dev), torch.from_numpy(lengths).to(dev), cfg
@@ -295,7 +334,7 @@ def compress(
     contents = contents.cpu().numpy()
     clens = clens.cpu().numpy()
     btypes = btypes.cpu().numpy()
-    parts = [write_frame_header(len(data))]
+    parts = [write_frame_header(len(data), checksum)]
     nblocks = len(lengths)
     for b in range(nblocks):
         last = 1 if b == nblocks - 1 else 0
@@ -309,4 +348,4 @@ def compress(
             hdr = (clen << 3) | (btype << 1) | last
             parts.append(hdr.to_bytes(3, "little"))
             parts.append(contents[b, :clen].tobytes())
-    return b"".join(parts)
+    return b"".join(parts + tail)
