@@ -7,9 +7,13 @@ Phases, in order; any failure exits non-zero:
 
 1. Card and build: the card's name and power limit, the nvcc build of the
    kernels in tpu_zstd_torch/csrc (seconds, registers, shared memory).
-2. Each kernel (K1-K5) against its plain PyTorch version on the card, at the
+2. Each kernel (K1-K9) against its plain PyTorch version on the card, at the
    main paths' shapes (B = 128) on seeded inputs: exact equality (K5 on its
-   live range: 1 <= t < nseq and the flush state).
+   live range: 1 <= t < nseq and the flush state; the decode kernels K6, K7
+   and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
+   decode plan stages for 16 seeded 128 KB decode_accel frames (made by the
+   port on the card); K8/K9 seeded valid sequences, literals front-compacted
+   or read from 4-stream rows, without and with a 4 KB window.
 3. The first slice's path at full width: the 16 MiB bench batch
    (128 x 128 KB) through `compress_blocks_staged_many` at SLICE_CONFIG, the
    launch counts set to 0 just before and read just after; every block's
@@ -23,18 +27,32 @@ Phases, in order; any failure exits non-zero:
    over 16 items of 64-256 KB against the same file, each frame decoded by
    stock libzstd (`zstandard`) where it is installed; each kernel against
    its plain version on the inputs it received in that run.
+4b. The decode path: the bench batch as 128 single-block items through
+   `compress_items` at level 3 with decode_accel=True (bench.py's frames),
+   every frame (sidecar included) and 4 checksummed ones against
+   tests/golden/torch_slice3.json; `prepare_decompress_batch(frames,
+   max_block=131072).execute()` with the counts set to 0 just before and read
+   just after: every row equals its item and is 131072 bytes long, and K6, K7
+   and K8/K9 were launched; `execute(verify_checksum=True)` on the
+   checksummed frames; each decode kernel against its plain version on the
+   inputs it received; then 8 of phase 4's blocks as frames without metadata
+   (K7's serial mode, literals decoded on the host) back to their bytes.
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
-   of 2), peak device memory, the parse and encode stages, and per kernel
-   its time by CUDA events at every captured shape, its bound and its plain
-   version's time.
+   of 2), peak device memory, the parse and encode stages; the decode as
+   bench.py times it (3 `execute()` calls with their lengths fetched, best of
+   2, GB/s = 16 MiB over that time) with its peak device memory; and per
+   kernel its time by CUDA events at every captured shape, its bound and its
+   plain version's time.
 
 The goldens come from tools/make_torch_goldens.py (the JAX package on the
-CPU). The last two lines are one JSON object of per-kernel numbers and one
-JSON object {"ok": true, "device": {...}}.
+CPU). The last three lines are the card's name and power limit, one JSON
+object of per-kernel numbers and one JSON object {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -90,14 +108,18 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from tpu_zstd_torch.api.manager import BatchManager
+    from tpu_zstd_torch.api import decompress
+    from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig
+    from tpu_zstd_torch.api.manager import BatchManager, compress_items
     from tpu_zstd_torch.constants import BLOCK_RLE
     from tpu_zstd_torch.corpus import make_corpus
     from tpu_zstd_torch.format.frame import write_frame_header
     from tpu_zstd_torch.format.xxhash import content_checksum
     from tpu_zstd_torch.ops import (
-        _kernels, bitpack, chain, concat, fse, greedy, huffman, lz77, rep, roll,
+        _kernels, bitpack, chain, concat, decode, decode_lanes, fse, greedy, huffman, lz77, rep,
+        roll,
     )
+    from tpu_zstd_torch.ops import exec as execmod
     from tpu_zstd_torch.ops.pipeline import (
         DEFAULT_CONFIG,
         SLICE_CONFIG,
@@ -115,6 +137,7 @@ def main() -> int:
         zstandard = None
     golden1 = json.loads((ROOT / "tests" / "golden" / "torch_slice1.json").read_text())
     golden2 = json.loads((ROOT / "tests" / "golden" / "torch_slice2.json").read_text())
+    golden3 = json.loads((ROOT / "tests" / "golden" / "torch_slice3.json").read_text())
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -141,7 +164,22 @@ def main() -> int:
                 "tpu_zstd/ops/pallas_rep.py:137 rep_codes"),
         "chain": (chain.state_chain3, chain.state_chain3_plain, "tpu_zstd_torch/csrc/chain.cu",
                   "tpu_zstd/ops/pallas_chain.py:108 state_chain3_pallas"),
+        "decode_huf": (decode_lanes.decode_huffman_lanes, decode.decode_huffman_device,
+                       "tpu_zstd_torch/csrc/decode_huf.cu",
+                       "tpu_zstd/ops/pallas_decode.py:112 decode_huffman_lanes"),
+        "decode_seq": (decode_lanes.decode_sequences_lanes,
+                       lambda *a: decode.decode_sequences_chunks(*a)[:3],
+                       "tpu_zstd_torch/csrc/decode_seq.cu",
+                       "tpu_zstd/ops/pallas_decode.py:391 decode_sequences_lanes"),
+        "exec": (execmod.execute_sequences,
+                 lambda *a, **k: (lambda o, n: (o, n.to(torch.int32)))(
+                     *decode.execute_sequences_device(*a, **k)),
+                 "tpu_zstd_torch/csrc/exec.cu",
+                 "tpu_zstd/ops/pallas_exec.py:416 execute_sequences_pallas"),
     }
+    # K8 and K9 are one CUDA kernel (csrc/exec.cu); the kernels line gives
+    # each TPU kernel its row.
+    K9_REPLACES = "tpu_zstd/ops/pallas_exec.py:512 execute_sequences_pallas_mb"
     # What plain_ms times: K4's plain version walks Python integers on the
     # host (copy to the host included), the others run torch ops on the card.
     PLAIN_KIND = {"rep": "host loop over Python integers"}
@@ -154,13 +192,25 @@ def main() -> int:
         live = (t >= 1) & (t < nseq.to(torch.int64)[:, None])
         return torch.where(live, pre, 0), torch.where(live, nb, 0), fin
 
-    def hold(name: str, args: tuple, label: str) -> None:
+    def live_cols(x, n):
+        """x (rows, cols) with the columns at or past n[row] set to 0."""
+        col = torch.arange(x.shape[1], device=x.device)
+        return torch.where(col < n.to(torch.int64)[:, None], x, 0)
+
+    def hold(name: str, args: tuple, label: str, kw=None) -> None:
+        kw = kw or {}
         kern, plain = K[name][0], K[name][1]
-        a = kern(*args)
-        b = plain(*args)
+        a = kern(*args, **kw)
+        b = plain(*args, **kw)
         torch.cuda.synchronize()
         if name == "chain":
             a, b = chain_live(a, args[7]), chain_live(b, args[7])
+        elif name == "decode_huf":  # live up to nsym
+            a, b = (live_cols(a, args[4]),), (live_cols(b, args[4]),)
+        elif name == "decode_seq":  # live up to nseq
+            a, b = (tuple(live_cols(x, args[3]) for x in y) for y in (a, b))
+        elif name == "exec":  # live up to out_len
+            a, b = (live_cols(a[0], a[1]), a[1]), (live_cols(b[0], b[1]), b[1])
         else:
             a, b = (a,), (b,)
         for x, y in zip(a, b):
@@ -214,6 +264,130 @@ def main() -> int:
         rle = cu(rng.random(R) < 0.05)
         hold("chain", (st, dnb, dfs, init, torch.full((R,), 6, device=dev), rle, rsym, nseq),
              f"({R}, {msb})")
+
+    # --- recording the inputs a path hands the kernels ---------------------------------
+    def key_of(x):
+        if torch.is_tensor(x):
+            return (tuple(x.shape), str(x.dtype))
+        if isinstance(x, (tuple, list)):
+            return tuple(key_of(v) for v in x)
+        return x
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(clone(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    def record(sites, run, count: bool):
+        """Run `run()` with the call sites patched to capture each distinct
+        input (args, kwargs, calls) a kernel wrapper received; with count,
+        every kernel's launch count is set to 0 just before and read just
+        after."""
+        captured: dict[str, dict] = {k: {} for k in K}
+        originals = {(mod, attr): getattr(mod, attr) for _, mod, attr in sites}
+
+        def recorder(name, fn):
+            def call(*args, **kw):
+                key = (key_of(args), key_of(sorted(kw.items())))
+                if key not in captured[name]:
+                    captured[name][key] = [clone(args), clone(kw), 0]
+                captured[name][key][2] += 1
+                return fn(*args, **kw)
+
+            return call
+
+        for name, mod, attr in sites:
+            setattr(mod, attr, recorder(name, originals[(mod, attr)]))
+        try:
+            torch.cuda.synchronize()
+            if count:
+                _kernels.reset_launches()
+            out = run()
+            torch.cuda.synchronize()
+            launches = dict(_kernels.launches)
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+        return out, launches, captured
+
+    def hold_captured(captured, label):
+        t0 = time.perf_counter()
+        n_real = 0
+        for k, inputs in captured.items():
+            for key, (args, kw, _) in inputs.items():
+                hold(k, args, f"{label} {key[0][0]}", kw)
+                n_real += 1
+        print(f"{label}: kernels == plain versions on {n_real} captured inputs "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    dec_sites = [("decode_huf", decompress, "decode_huffman_lanes"),
+                 ("decode_seq", decompress, "decode_sequences_lanes"),
+                 ("exec", decompress, "execute_sequences")]
+    accel_cfg = CompressionConfig.from_level(3)
+    accel_cfg = dataclasses.replace(accel_cfg, decode_accel=True)
+
+    # K6 and K7 on the inputs the decode plan stages for seeded accel frames:
+    # 16 items of 128 KB drawn from a vocabulary of seeded words, with
+    # seeded random stretches.
+    vocab = [bytes(rng.integers(97, 123, int(rng.integers(2, 12)), dtype=np.uint8)) + b" "
+             for _ in range(600)]
+    items_s = []
+    for _ in range(16):
+        words = rng.integers(0, len(vocab), N // 3)
+        blob = b"".join(vocab[w] for w in words)
+        noise = rng.integers(0, 256, N // 8, dtype=np.uint8).tobytes()
+        at = int(rng.integers(0, N // 2))
+        items_s.append((blob[:at] + noise + blob[at:])[:N])
+    frames_s = compress_items(items_s, accel_cfg, device="cuda")
+    (out_s, len_s), _, cap_s = record(
+        dec_sites, lambda: decompress.prepare_decompress_batch(frames_s, N).execute(), False)
+    out_h, len_h = out_s.cpu().numpy(), len_s.cpu().numpy()
+    if any(int(len_h[i]) != N or out_h[i].tobytes() != items_s[i] for i in range(16)):
+        _fail("seeded accel frames did not decode to their items")
+    for name in ("decode_huf", "decode_seq"):
+        for key, (args, kw, _) in cap_s[name].items():
+            hold(name, args, f"seeded accel {key[0][0]}", kw)
+
+    # K8/K9 on seeded valid sequences at the main path's shape (128 blocks of
+    # 128 KB): literals front-compacted and from 4-stream rows, no window;
+    # and with a 4 KB window.
+    def seq_case(W: int):
+        MS = 24576
+        ll = rng.integers(0, 24, (B, MS))
+        ll[:, 0] = np.maximum(ll[:, 0], 1)
+        ml = rng.integers(3, 64, (B, MS))
+        end = np.cumsum(ll + ml, 1)
+        nseq = np.minimum((end <= N - 64).sum(1), rng.integers(MS // 2, MS + 1, B))
+        mstart = end - ml  # the output position of each match
+        far = np.floor(rng.random((B, MS)) * (mstart + W)).astype(np.int64) + 1
+        near = np.minimum(rng.integers(1, 9, (B, MS)), mstart + W)
+        off = np.where(rng.random((B, MS)) < 0.3, near, far)
+        live = np.arange(MS)[None, :] < nseq[:, None]
+        ll, ml, off = (np.where(live, x, 0).astype(np.int32) for x in (ll, ml, off))
+        nlit = ll.sum(1) + rng.integers(0, 32, B)
+        lits = rng.integers(0, 256, (B, N), dtype=np.uint8)
+        window = rng.integers(0, 256, (B, W), dtype=np.uint8)
+        return [cu(x) for x in (lits, nlit.astype(np.int32), ll, ml, off,
+                                nseq.astype(np.int32), window)]
+
+    for W in (4096, 0):
+        args = seq_case(W)
+        hold("exec", tuple(args) + (N, W), f"seeded sequences, window {W}")
+    lits, nlit = args[0], args[1]  # the window-0 case
+    seg = torch.clamp((nlit.to(torch.int64) + 3) // 4, min=1)
+    col = torch.arange(N // 4 + 64, device=dev)
+    rows = []
+    for s4 in range(4):
+        p = s4 * seg[:, None] + col
+        ok = (col < seg[:, None]) & (p < nlit[:, None])
+        rows.append(torch.where(ok, lits.gather(1, torch.clamp(p, max=N - 1)), 0))
+    syms = torch.stack(rows, 1).reshape(4 * B, -1).to(torch.uint8).contiguous()
+    hold("exec", tuple(args) + (N, 0), "seeded sequences, literals from 4-stream rows",
+         {"lit_src": (syms, nlit)})
     print(f"phase 2: kernels == plain versions on seeded inputs ({time.perf_counter() - t0:.1f} s)")
 
     # --- running a main path with counts ---------------------------------------------
@@ -225,35 +399,7 @@ def main() -> int:
              ("chain", fse, "state_chain3"), ("chain", huffman, "state_chain3")]
 
     def drive(run):
-        """Run `run()` with every kernel's launch count set to 0 just before
-        and read just after; capture each distinct input a kernel received."""
-        captured: dict[str, dict] = {k: {} for k in K}
-        originals = {(mod, attr): getattr(mod, attr) for _, mod, attr in sites}
-
-        def recorder(name, fn):
-            def call(*args):
-                key = tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
-                            for a in args)
-                if key not in captured[name]:
-                    captured[name][key] = [tuple(a.clone() if torch.is_tensor(a) else a
-                                                 for a in args), 0]
-                captured[name][key][1] += 1
-                return fn(*args)
-
-            return call
-
-        for name, mod, attr in sites:
-            setattr(mod, attr, recorder(name, originals[(mod, attr)]))
-        try:
-            torch.cuda.synchronize()
-            _kernels.reset_launches()
-            out = run()
-            torch.cuda.synchronize()
-            launches = dict(_kernels.launches)
-        finally:
-            for (mod, attr), fn in originals.items():
-                setattr(mod, attr, fn)
-        return out, launches, captured
+        return record(sites, run, True)
 
     def check_blocks(outs, golden, label):
         contents, clens, btypes = (t.cpu().numpy() for t in outs)
@@ -277,16 +423,6 @@ def main() -> int:
         got = zstandard.ZstdDecompressor().decompress(frame, max_output_size=max(len(expect), 1))
         if got != expect:
             _fail(f"libzstd decodes {what} to other bytes")
-
-    def hold_captured(captured, label):
-        t0 = time.perf_counter()
-        n_real = 0
-        for k, inputs in captured.items():
-            for key, (args, _) in inputs.items():
-                hold(k, args, f"{label} {key}")
-                n_real += 1
-        print(f"{label}: kernels == plain versions on {n_real} captured inputs "
-              f"({time.perf_counter() - t0:.1f} s)")
 
     def batch_ms(cfg):
         compress_blocks_staged(blocks, lengths, cfg)
@@ -328,8 +464,8 @@ def main() -> int:
     outs, launches, captured = drive(lambda: compress_blocks_staged_many([(blocks, lengths)], cfg))
     print(f"phase 4: DEFAULT_CONFIG path launches {launches} "
           f"(first batch {time.perf_counter() - t0:.2f} s)")
-    for k, n_launch in launches.items():
-        if n_launch <= 0:
+    for k in ("roll", "concat", "greedy", "rep", "chain"):
+        if launches[k] <= 0:
             _fail(f"kernel {k} was not launched on the DEFAULT_CONFIG path")
     contents, clens, btypes = check_blocks(outs[0], golden2, "phase 4")
     parts = [write_frame_header(B * N)]
@@ -374,6 +510,71 @@ def main() -> int:
                "decoded when they were made"))
     hold_captured(captured, "phase 4")
 
+    # --- 4b. the decode path --------------------------------------------------------------
+    g3 = golden3
+    items = [data[i * N : (i + 1) * N] for i in range(B)]
+    if [(len(d), _sha(d)) for d in items] != [(g["len"], g["sha256"]) for g in g3["items"]]:
+        _fail("phase 4b: the bench items differ from the golden's")
+    t0 = time.perf_counter()
+    frames = compress_items(items, accel_cfg, device="cuda")
+    t_comp = time.perf_counter() - t0
+    bad = [k for k, (f, g) in enumerate(zip(frames, g3["frames"]))
+           if (len(f), _sha(f)) != (g["len"], g["sha256"])]
+    if len(frames) != len(g3["frames"]) or bad:
+        _fail(f"phase 4b: {len(bad)} accel frames differ from the JAX golden (first {bad[:8]})")
+    ck_cfg = dataclasses.replace(accel_cfg, checksum=ChecksumPolicy.COMPUTE)
+    ck_frames = compress_items(items[: len(g3["checksum_frames"])], ck_cfg, device="cuda")
+    if [(len(f), _sha(f)) for f in ck_frames] != [(g["len"], g["sha256"])
+                                                 for g in g3["checksum_frames"]]:
+        _fail("phase 4b: the checksummed accel frames differ from the JAX golden")
+    size = sum(len(f) for f in frames)
+    print(f"phase 4b: compress_items(128 x 128 KB, level 3, decode_accel) {len(frames)} frames "
+          f"== JAX golden ({size} bytes with sidecars, ratio {B * N / size:.4f}, "
+          f"{t_comp:.2f} s); {len(ck_frames)} checksummed frames == JAX golden")
+    t0 = time.perf_counter()
+    (out, lens), dec_launches, dec_captured = record(
+        dec_sites, lambda: (lambda plan: (plan, plan.execute()))(
+            decompress.prepare_decompress_batch(frames, max_block=N))[1], True)
+    print(f"phase 4b: prepare_decompress_batch + execute launches {dec_launches} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    for k in ("decode_huf", "decode_seq", "exec"):
+        if dec_launches[k] <= 0:
+            _fail(f"kernel {k} was not launched on the decode path")
+    out_h, len_h = out.cpu().numpy(), lens.cpu().numpy()
+    wrong = [i for i in range(B) if int(len_h[i]) != N or out_h[i].tobytes() != items[i]]
+    if wrong:
+        _fail(f"phase 4b: {len(wrong)} of {B} decoded blocks differ from the input "
+              f"(first {wrong[:8]})")
+    print(f"phase 4b: all {B} decoded blocks == the input, each {N} bytes")
+    t0 = time.perf_counter()
+    ck_plan = decompress.prepare_decompress_batch(ck_frames, max_block=N)
+    ck_out, ck_len = ck_plan.execute(verify_checksum=True)
+    if any(ck_out[i, : int(ck_len[i])].cpu().numpy().tobytes() != items[i]
+           for i in range(len(ck_frames))):
+        _fail("phase 4b: checksummed frames decode to other bytes")
+    print(f"phase 4b: execute(verify_checksum=True) on {len(ck_frames)} checksummed frames "
+          f"passed ({time.perf_counter() - t0:.2f} s)")
+    hold_captured(dec_captured, "phase 4b")
+
+    # Frames without metadata: 8 of phase 4's blocks as single-block frames.
+    plain_frames = []
+    for b in range(8):
+        clen = 1 if int(btypes[b]) == BLOCK_RLE else int(clens[b])
+        hdr = ((N if int(btypes[b]) == BLOCK_RLE else clen) << 3) | (int(btypes[b]) << 1) | 1
+        plain_frames.append(write_frame_header(N) + hdr.to_bytes(3, "little")
+                            + contents[b, :clen].tobytes())
+    t0 = time.perf_counter()
+    (sout, slen), ser_launches, ser_captured = record(
+        dec_sites, lambda: decompress.prepare_decompress_batch(plain_frames, N).execute(), True)
+    t_ser = time.perf_counter() - t0
+    if ser_launches["decode_seq"] <= 0 or ser_launches["decode_huf"] != 0:
+        _fail(f"phase 4b: the serial decode launched {ser_launches}")
+    if any(int(slen[i]) != N or sout[i].cpu().numpy().tobytes() != items[i] for i in range(8)):
+        _fail("phase 4b: frames without metadata decode to other bytes")
+    print(f"phase 4b: 8 frames without metadata (serial K7, host literals) == the input "
+          f"(launches {ser_launches}; {t_ser:.2f} s with the host literal decode)")
+    hold_captured(ser_captured, "phase 4b serial")
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -387,55 +588,111 @@ def main() -> int:
     print(f"time [{card}]: DEFAULT_CONFIG parse stage {parse_ms:.3f} ms; encode stage (bucket "
           f"{msb}: tables, K5 chains, deposit, Huffman literals, assembly) {enc_ms:.3f} ms")
 
+    plan = decompress.prepare_decompress_batch(frames, max_block=N)
+    plan.execute()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ddt = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pending = [plan.execute() for _ in range(3)]
+        for _, ln in pending:
+            ln.cpu()
+        ddt = min(ddt, (time.perf_counter() - t0) / 3)
+    dpeak = torch.cuda.max_memory_allocated()
+    dec_ms = _time_ms(lambda: plan.execute(), 5)
+    print(f"time [{card}]: decode 128x128KB accel frames, prepare_decompress_batch(...).execute() "
+          f"{ddt * 1e3:.3f} ms = {B * N / ddt / 1e9:.4f} GB/s (3 executes with lengths fetched, "
+          f"best of 2); by CUDA events {dec_ms:.3f} ms; peak device memory {dpeak / 2**30:.3f} "
+          f"GiB ({(dpeak - base_mem) / 2**20:.1f} MiB above the plan's resident inputs)")
+
     def nbytes(t):
         return t.numel() * t.element_size()
 
-    def bound(name, args, out):
+    def stream_bytes(total_bits):
+        return int(((total_bits.to(torch.int64) + 7) // 8).sum())
+
+    def bound(name, args, kw, out):
+        """Least time for the work: bytes read once + written once over the
+        card's memory rate (the decode kernels: the live stream bytes, symbols,
+        sequences and outputs of this input)."""
         if name == "concat":
             x, off, cnt, out_len = args
             c = cnt.to(torch.int64)
             start = torch.clamp(torch.cumsum(c, 1) - c, max=out_len)
             moved = int(torch.minimum(c, out_len - start).sum())
-            return (moved * 4 + nbytes(off) + nbytes(cnt) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
-        if name == "chain":  # int32 operands as the kernel reads them
-            n_in = sum(a.numel() for a in args)
-            n_out = sum(o.numel() for o in out)
-            return (n_in + n_out) * 4 / HBM_BYTES_PER_S * 1e3
-        return (sum(nbytes(a) for a in args if torch.is_tensor(a)) + nbytes(out)) \
-            / HBM_BYTES_PER_S * 1e3
+            nb = moved * 4 + nbytes(off) + nbytes(cnt) + nbytes(out)
+        elif name == "chain":  # int32 operands as the kernel reads them
+            nb = (sum(a.numel() for a in args) + sum(o.numel() for o in out)) * 4
+        elif name == "decode_huf":  # streams, tables, records in; symbols out
+            _, tbits, _, tl, nsym, _, _, ck = args
+            nb = (stream_bytes(tbits) + 4 * int((1 << tl.to(torch.int64)).sum())
+                  + nbytes(ck) + 8 * tbits.numel() + int(nsym.sum()))
+        elif name == "decode_seq":  # streams, tables, records in; ll/ml/off out
+            _, tbits, tables, nseq_a, _, ckb, cks, ckr = args[:8]
+            nb = (stream_bytes(tbits) + 3 * 512 * 4 * tbits.numel() + nbytes(ckb) + nbytes(cks)
+                  + nbytes(ckr) + 12 * int(nseq_a.sum()))
+        elif name == "exec":  # literals and sequences in; the output bytes out
+            nlit_a, nseq_a = args[1], args[5]
+            nb = int(nlit_a.sum()) + 12 * int(nseq_a.sum()) + int(out[1].sum())
+        else:
+            nb = sum(nbytes(a) for a in args if torch.is_tensor(a)) + nbytes(out)
+        return nb / HBM_BYTES_PER_S * 1e3
+
+    def shape_of(name, key):
+        if name == "chain":
+            return f"rows x msb {key[0][6][0]}"
+        if name == "decode_seq":
+            return f"{key[0][0][0][0]} blocks x {key[0][9]} chunks of {key[0][8]}"
+        if name == "decode_huf":
+            return f"{key[0][0][0][0]} streams x {key[0][6]} chunks of {key[0][5]}"
+        if name == "exec":
+            return f"{key[0][2][0]} ({'lit_src' if key[1] else 'lits'})"
+        return f"{key[0][0][0]} {key[0][0][1]}"
 
     # Every captured shape is timed; `ms_per_batch` sums the kernel's time over
-    # its launches in one batch. The JSON row reports the representative
-    # shape: K1's byte roll at the block width, else the largest input.
+    # its launches in one batch (the decode kernels: one execute() of the
+    # bench frames). The JSON row reports the representative shape: K1's byte
+    # roll at the block width, else the largest input.
+    all_captured = {k: captured[k] for k in ("roll", "concat", "greedy", "rep", "chain")}
+    all_captured.update({k: dec_captured[k] for k in ("decode_huf", "decode_seq", "exec")})
+    all_launches = {**launches, **{k: dec_launches[k] for k in ("decode_huf", "decode_seq",
+                                                                 "exec")}}
+    plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1}
     rows_out = []
     for name, (kern, plain, source, replaces) in K.items():
         per_batch = 0.0
         row = None
-        for key, (args, n_calls) in sorted(captured[name].items(),
-                                            key=lambda kv: -sum(nbytes(a) for a in kv[1][0]
-                                                               if torch.is_tensor(a))):
+        for key, (args, kw, n_calls) in sorted(
+                all_captured[name].items(),
+                key=lambda kv: -sum(nbytes(a) for a in kv[1][0] if torch.is_tensor(a))):
             if name == "chain":  # the wrapper's int32 copies are not the kernel's time
                 args = tuple(a.to(torch.int32).contiguous() for a in args)
-            out = kern(*args)
-            ms = _time_ms(lambda: kern(*args), 20)
-            plain_ms = _time_ms(lambda: plain(*args), 1 if name == "rep" else 3)
-            b_ms = bound(name, args, out)
+            out = kern(*args, **kw)
+            ms = _time_ms(lambda: kern(*args, **kw), 20)
+            plain_ms = _time_ms(lambda: plain(*args, **kw), plain_iters.get(name, 3))
+            b_ms = bound(name, args, kw, out)
             per_batch += n_calls * ms
-            shape = f"{key[0][0]} {key[0][1]}" if name != "chain" else f"rows x msb {key[6][0]}"
+            shape = shape_of(name, key)
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
-            if row is None or key[0] == ((B, N), "torch.uint8"):
+            if row is None or key[0][0] == ((B, N), "torch.uint8"):
                 row = {
                     "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": max_err[name],
+                    "launches": all_launches[name], "max_abs_err": max_err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
-                    "library_ms": None, "shape": shape, "launches_slice1": launches1[name],
+                    "library_ms": None, "shape": shape,
+                    "launches_slice1": launches1.get(name, 0),
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
                 }
         row["ms_per_batch"] = per_batch
         rows_out.append(row)
-        print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over {launches[name]} "
-              f"launches")
+        print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over "
+              f"{all_launches[name]} launches")
+    k8 = next(r for r in rows_out if r["name"] == "exec")
+    k8["name"] = "exec_k8"
+    rows_out.append({**k8, "name": "exec_k9", "replaces": K9_REPLACES})
     print(card)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,10 @@
-"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
-a card, and a DEFAULT_CONFIG frame made on the card against the one made on
-the CPU. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
-exact equality; the K5 state chains on their live range. (One test item,
-like the other tests/test_torch_*.py files.)
+"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions, on
+a card, a DEFAULT_CONFIG frame made on the card against the one made on
+the CPU, and the decode of decode_accel frames on the card against the
+input. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
+exact equality; the K5 state chains on their live range, the decode kernels
+up to nsym, nseq and out_len. (One test item, like the other
+tests/test_torch_*.py files.)
 """
 
 import jax  # noqa: F401  (JAX stays on the CPU; see conftest.py)
@@ -11,8 +13,10 @@ import pytest
 import torch
 import torch_cases
 
+from tpu_zstd_torch.api import decompress
 from tpu_zstd_torch.corpus import make_corpus
-from tpu_zstd_torch.ops import chain, concat, greedy, pipeline, rep, roll
+from tpu_zstd_torch.ops import chain, concat, decode, decode_lanes, greedy, pipeline, rep, roll
+from tpu_zstd_torch.ops import exec as execmod
 
 
 def _t(a):
@@ -55,3 +59,42 @@ def test_cuda_kernels_match_plain():
     data = make_corpus(5 * 16384)
     assert pipeline.compress(data, cfg, True, device=dev) == pipeline.compress(
         data, cfg, True, device="cpu")
+    _check_decode_kernels(dev)
+
+
+def _live(x, n):
+    x = x.cpu()
+    return torch.where(torch.arange(x.shape[1]) < n.cpu().to(torch.int64)[:, None], x, 0)
+
+
+def _check_decode_kernels(dev):
+    i = torch_cases.CASES["decode_huffman"].inputs()
+    args = [_t(i[k]).to(dev) for k in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")]
+    lck = _t(i["lck"]).to(dev)
+    got = decode_lanes.decode_huffman_lanes(*args, i["CL"], i["NCL"], lck)
+    want = decode.decode_huffman_device(*args, i["CL"], i["NCL"], lck)
+    assert torch.equal(_live(got, args[4]), _live(want, args[4]))
+    tables = decode.SeqTables(*(_t(i[k]).to(dev) for k in ("sym", "nb", "ns", "logs")))
+    rep0 = torch.tensor([[1, 4, 8]] * len(i["nseq"]), dtype=torch.int32, device=dev)
+    sargs = (_t(i["streams"]).to(dev), _t(i["tbits"]).to(dev), tables, _t(i["nseq"]).to(dev),
+             rep0)
+    for ck, C, NC in (((_t(i["ckb"]), _t(i["cks"]), _t(i["ckr"])), i["C"], i["NC"]),
+                      ((torch.zeros((4, 0), dtype=torch.int32),) * 2
+                       + (torch.zeros((4, 0, 3), dtype=torch.int32),), 20000, 1)):
+        ck = tuple(x.to(dev) for x in ck)
+        got = decode_lanes.decode_sequences_lanes(*sargs, *ck, C, NC, 20000)
+        want = decode.decode_sequences_chunks(*sargs, *ck, C, NC, 20000)[:3]
+        for g, w in zip(got, want):
+            assert torch.equal(_live(g, sargs[3]), _live(w, sargs[3]))
+    for W in (0, 300):
+        eargs = [_t(a).to(dev) for a in torch_cases.exec_inputs(W, 6, 4096, W, 96, 2048)]
+        eargs[6] = eargs[6][:, :W].contiguous()
+        out, n = execmod.execute_sequences(*eargs, 4096, W)
+        ref, rn = decode.execute_sequences_device(*eargs, 4096, W)
+        assert torch.equal(n.cpu(), rn.cpu().to(torch.int32))
+        assert torch.equal(_live(out, n), _live(ref, rn))
+    c = torch_cases.CASES["decompress_batch_accel"]
+    inp = c.inputs()
+    out, lens = decompress.prepare_decompress_batch(inp["frames"], torch_cases.DEC_N).execute()
+    for k, p in enumerate(inp["payloads"]):
+        assert int(lens[k]) == len(p) and out[k, : len(p)].cpu().numpy().tobytes() == p

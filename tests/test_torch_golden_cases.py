@@ -5,10 +5,14 @@ numpy, runs the port's function on CPU tensors and compares the digest of
 its output exactly with the JAX package's, recorded in
 tests/golden/torch_cases.json by tools/make_torch_goldens.py. The cases
 cover the first slice (kernels K1-K4, bit deposit, the parse, the
-predefined-table encode, SLICE_CONFIG frames at 8-16 KB blocks) and the
+predefined-table encode, SLICE_CONFIG frames at 8-16 KB blocks), the
 second (custom FSE tables per stream, the state chains, the Huffman stages,
 DEFAULT_CONFIG frames and level 1/3/5 item frames at 16 KB blocks, with and
-without checksum); stock libzstd (`zstandard`) decodes every port frame.
+without checksum) and the third (decode checkpoints, decode_accel frames
+and their sidecar, the host format copies, the plain versions of the decode
+kernels K6-K9, and `prepare_decompress_batch` on the port's accel and plain
+frames and on libzstd's); stock libzstd (`zstandard`) decodes every port
+frame.
 
 This file imports neither JAX nor the JAX package and compiles nothing; it
 runs in a few seconds. It holds nine items: pytest-xdist's `--dist loadfile`
@@ -17,8 +21,8 @@ beside the nine-item reference files, after every reference file with more
 items, and the reference files keep the order and the workers they have
 without it. The live comparisons against the JAX package
 (tests/test_torch_{kernels,parse,fse,pipeline,fse_custom,huffman,
-manager}.py) also hold the recorded digests against the JAX package's live
-output.
+manager,accel,decode}.py) also hold the recorded digests against the JAX
+package's live output.
 """
 
 import ast
@@ -31,18 +35,22 @@ import zstandard
 
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
-    "kernels_k1_k4": ["roll_u8", "roll_i32", "concat", "greedy", "rep"],
+    "kernels": ["roll_u8", "roll_i32", "concat", "greedy", "rep", "decode_sequences_serial",
+                "decode_sequences_chunked", "decode_huffman", "execute_sequences"],
     "deposit_parse_predefined": ["deposit_scatter", "deposit_tree", "parse_8k",
                                  "encode_predefined"],
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
     "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
-                   "choose_tables_of", "choose_tables_ml"],
+                   "choose_tables_of", "choose_tables_ml", "format_decode"],
     "chains_encode": ["chain_sequences", "chain_weights", "prepare_sequences_auto",
-                      "encode_prepared"],
+                      "encode_prepared", "encode_prepared_ckpt"],
     "huffman_stages": ["huffman_histogram", "huffman_lengths", "huffman_codes",
                        "huffman_weights_header", "huffman_weights_fse", "huffman_4stream",
-                       "huffman_literals", "lit_compressed_header"],
-    "default_frames": ["frame_default_8k", "frame_default_16k", "frame_default_16k_checksum"],
+                       "huffman_literals", "huffman_literals_ckpt", "lit_compressed_header"],
+    "default_frames": ["frame_default_8k", "frame_default_16k", "frame_default_16k_checksum",
+                       "accel_records", "accel_items_16k", "accel_items_16k_checksum",
+                       "decompress_batch_accel", "decompress_batch_plain",
+                       "decompress_batch_zstd"],
     "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64"],
 }
 

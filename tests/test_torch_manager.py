@@ -2,8 +2,9 @@
 (tpu_zstd/api): the configuration copy and level table, `compress_items`
 against `compress_items_tpu` at levels 1, 3 and 5 with and without checksum
 (and the seeded cases of tests/torch_cases.py, group "manager"),
-`BatchManager.compress_batch` frames and stats, the content checksum, and
-the settings that belong to later slices. Every port frame is decoded by
+`BatchManager.compress_batch` frames and stats, the content checksum, the
+decode_accel pipeline mapping, and the settings that belong to later
+slices. Every port frame is decoded by
 stock libzstd (`zstandard`). Exact equality. One test item (see
 tests/test_torch_kernels.py).
 """
@@ -39,6 +40,10 @@ def _check_config_copy_and_level_table():
         if level <= 6:
             assert dataclasses.asdict(tm._pipeline_config(mine)) == dataclasses.asdict(
                 jm._pipeline_config(ref)), level
+            accel = dataclasses.replace(ref, decode_accel=True)
+            assert dataclasses.asdict(tm._pipeline_config(
+                tm.compression_config_from_reference(dataclasses.asdict(accel)))) == \
+                dataclasses.asdict(jm._pipeline_config(accel)), level
     assert [tm._bucket(n) for n in (0, 1, 8, 9, 100)] == [jm._bucket(n) for n in (0, 1, 8, 9, 100)]
     with pytest.raises(ValueError):
         tm.compression_config_from_reference({"level": 3, "no_such_field": 1})
@@ -46,7 +51,7 @@ def _check_config_copy_and_level_table():
 
 def _check_later_slices_raise():
     base = tc.CompressionConfig.from_level(3)
-    for change in ({"enable_ldm": True}, {"decode_accel": True}, {"dict_id": 7}):
+    for change in ({"enable_ldm": True}, {"dict_id": 7}):
         with pytest.raises(NotImplementedError):
             tm.compress_items([b"abc"], dataclasses.replace(base, **change), device="cpu")
     with pytest.raises(NotImplementedError):

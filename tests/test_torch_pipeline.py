@@ -161,7 +161,8 @@ def _check_port_imports_no_jax_and_no_reference_package():
     rel = {str(f.relative_to(ROOT)) for f in files}
     assert {f"tpu_zstd_torch/{m}.py" for m in (
         "ops/chain", "ops/fse_tables", "ops/huffman", "format/xxhash", "api/config",
-        "api/manager")} <= rel
+        "api/manager", "ops/decode", "ops/decode_lanes", "ops/exec", "api/decompress",
+        "format/accel", "format/bitstream", "format/huffman", "format/sequences")} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

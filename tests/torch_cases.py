@@ -21,6 +21,7 @@ that every caller masks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import pathlib
@@ -869,3 +870,503 @@ def _xxh_ref(i):
 
 
 case("xxh64", "manager", _xxh_inputs, _xxh_port, _xxh_ref)
+
+
+# --- Slice 3: decode checkpoints, accel frames, the decode path --------------------
+
+
+def _ckpt_inputs():
+    """_auto_inputs plus resolved offsets for the decoder rep triples."""
+    i = _auto_inputs()
+    rng = np.random.default_rng(8192)
+    off = rng.integers(1, 1 << 20, i["ll"].shape).astype(np.int32)
+    return {**i, "off": np.where(i["ob"] > 0, off, 0).astype(np.int32)}
+
+
+def _ckpt_port(i):
+    from tpu_zstd_torch.ops import fse
+
+    ms = int(i["ms"])
+    nseq = _t(i["nseq"])
+    prep = fse.prepare_sequences_auto(_t(i["ll"]), _t(i["ml"]), _t(i["ob"]), nseq, ms,
+                                      _t(i["off"]))
+    out, n, ckb, cks, ckr = fse.encode_prepared(prep, nseq, ms, _seq_cap(ms), 256)
+    return {"out": out, "len": n, "ck_bits": ckb, "ck_states": cks, "ck_rep": ckr,
+            "rep_pre": prep["rep_pre"]}
+
+
+def _ckpt_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import fse_jax
+
+    ms = int(i["ms"])
+
+    def one(a, b, c, n, o):
+        p = fse_jax.prepare_sequences_auto(a, b, c, n, ms, o)
+        out, ln, ckb, cks, ckr = fse_jax.encode_prepared(p, n, ms, _seq_cap(ms), 256)
+        return {"out": out, "len": ln, "ck_bits": ckb, "ck_states": cks, "ck_rep": ckr,
+                "rep_pre": p["rep_pre"]}
+
+    return jax.jit(jax.vmap(one))(
+        jnp.asarray(i["ll"]), jnp.asarray(i["ml"]), jnp.asarray(i["ob"]),
+        jnp.asarray(i["nseq"], jnp.int32), jnp.asarray(i["off"]))
+
+
+case("encode_prepared_ckpt", "accel", _ckpt_inputs, _ckpt_port, _ckpt_ref)
+
+LIT_CKPT = 64  # literal checkpoint stride at LIT_N = 4096: 15 records a stream
+
+
+def _huff_ckpt_port(i):
+    from tpu_zstd_torch.ops import huffman as h
+
+    out, n, ok, ck = h.compress_literals_huffman(_t(i["lits"]), _t(i["nlit"]),
+                                                 h.huff_payload_cap(LIT_N), LIT_CKPT)
+    return {"payload": out, "len": n, "ok": ok, "lit_ck": ck}
+
+
+def _huff_ckpt_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import huffman_jax as h
+
+    def one(lits, nlit):
+        out, n, ok, ck = h.compress_literals_huffman(lits, nlit, h.huff_payload_cap(LIT_N),
+                                                     LIT_CKPT)
+        return {"payload": out, "len": n, "ok": ok, "lit_ck": ck}
+
+    return jax.jit(jax.vmap(one))(jnp.asarray(i["lits"]), jnp.asarray(i["nlit"]))
+
+
+case("huffman_literals_ckpt", "accel", _lits_inputs, _huff_ckpt_port, _huff_ckpt_ref)
+
+
+def _accel_record_inputs():
+    """Checkpoint records: a block with u24 reps, one with a rep >= 2^24 (u32
+    reps), an empty one, and literal records with zero tails (forward
+    filled by the writer)."""
+    rng = np.random.default_rng(24)
+    lit = rng.integers(1000, 60000, (4, 5)).astype(np.uint32)
+    lit = np.sort(lit, axis=1)[:, ::-1].copy()
+    lit[:, 3:] = 0
+    blocks = []
+    for nck, top in ((6, 1 << 20), (3, 1 << 26), (0, 1)):
+        bits = np.sort(rng.integers(100, 1 << 22, nck))[::-1].astype(np.uint32)
+        states = rng.integers(0, 1 << 29, nck).astype(np.uint32)
+        reps = rng.integers(1, top, (nck, 3)).astype(np.uint32)
+        blocks.append((int(nck * 256 + 17), bits, states, reps,
+                       lit if nck == 6 else np.zeros((4, 0), np.uint32)))
+    return {"blocks": blocks}
+
+
+def _accel_record_run(accel, blocks):
+    raw = accel.write_accel_frame(256, blocks, lit_stride=1024)
+    meta, end = accel.parse_accel_tail(b"\x01\x02" + raw)
+    out = {"frame": np.frombuffer(raw, np.uint8), "end": end,
+           "strides": [meta.stride, meta.lit_stride, meta.flags]}
+    for k, (nseq, bits, states, reps, lit) in enumerate(meta.blocks):
+        out.update({f"b{k}_nseq": nseq, f"b{k}_bits": bits, f"b{k}_states": states,
+                    f"b{k}_reps": reps, f"b{k}_lit": lit})
+    return out
+
+
+def _accel_record_port(i):
+    from tpu_zstd_torch.format import accel
+
+    return _accel_record_run(accel, i["blocks"])
+
+
+def _accel_record_ref(i):
+    from tpu_zstd.format import accel
+
+    return _accel_record_run(accel, i["blocks"])
+
+
+case("accel_records", "accel", _accel_record_inputs, _accel_record_port, _accel_record_ref)
+
+
+def _accel_items_inputs(checksum):
+    """Level-3 items with decode_accel at 16 KB blocks: corpus blocks with
+    several sequence and literal chunks, a run of one byte, random bytes and
+    a short text."""
+    def make():
+        rng = np.random.default_rng(316)
+        base = make_corpus(3 * 16384)
+        items = [base[:16384], base[16384:32768], b"\x09" * 7000,
+                 rng.integers(0, 256, 4000, dtype=np.uint8).tobytes(), base[40000:41000]]
+        return {"checksum": checksum, "items": items}
+
+    return make
+
+
+def _accel_cfg(ref: bool, checksum: int):
+    from importlib import import_module
+
+    config = import_module("tpu_zstd.api.config" if ref else "tpu_zstd_torch.api.config")
+    cfg = config.CompressionConfig.from_level(3)
+    return dataclasses.replace(cfg, block_size=16384, decode_accel=True,
+                               checksum=config.ChecksumPolicy(checksum))
+
+
+def _accel_items_port(i):
+    from tpu_zstd_torch.api import manager
+
+    frames = manager.compress_items(i["items"], _accel_cfg(False, i["checksum"]), device="cpu")
+    return {f"frame{k}": f for k, f in enumerate(frames)}
+
+
+def _accel_items_ref(i):
+    from tpu_zstd.api import manager
+
+    frames = manager.compress_items_tpu(i["items"], _accel_cfg(True, i["checksum"]))
+    return {f"frame{k}": f for k, f in enumerate(frames)}
+
+
+case("accel_items_16k", "accel", _accel_items_inputs(0), _accel_items_port, _accel_items_ref)
+case("accel_items_16k_checksum", "accel", _accel_items_inputs(1), _accel_items_port,
+     _accel_items_ref)
+
+DEC_N = 16384  # decode cases: 16 KB blocks (several sequence and literal chunks)
+
+
+def _dec_frames_inputs(kind):
+    """Single-block frames of corpus slices and a mixed block: the port's
+    level-3 decode_accel frames ("accel", chunk-parallel with device
+    literals), the same without metadata ("plain", serial decode, host
+    literals), or stock libzstd's at levels 1, 3, 9 and 19 ("zstd"). Built
+    once per kind; callers do not modify the result."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        import zstandard
+
+        from tpu_zstd_torch.api import config, manager
+
+        n = DEC_N if kind == "accel" else DEC_N // 4  # serial decodes cost a step a sequence
+        base = make_corpus(4 * n)
+        payloads = [base[k * n : (k + 1) * n] for k in range(3)] + [_mix(33, n)]
+        if kind == "zstd":
+            frames = [zstandard.ZstdCompressor(level=lv).compress(p)
+                      for p, lv in zip(payloads, (1, 3, 9, 19))]
+        else:
+            cfg = dataclasses.replace(config.CompressionConfig.from_level(3),
+                                      decode_accel=kind == "accel")
+            frames = manager.compress_items(payloads, cfg, device="cpu")
+        return {"frames": frames, "payloads": payloads}
+
+    return make
+
+
+def _dec_digest(out, lens, payloads):
+    lens = np.asarray(lens).astype(np.int64)
+    out = np.asarray(out)
+    got = [out[k, : lens[k]].tobytes() for k in range(len(payloads))]
+    return {"lens": lens, "equal_input": [g == p for g, p in zip(got, payloads)],
+            "out": np.where(np.arange(out.shape[1]) < lens[:, None], out, 0)}
+
+
+def _dec_batch_port(i):
+    from tpu_zstd_torch.api import decompress
+
+    out, lens = decompress.prepare_decompress_batch(i["frames"], DEC_N, device="cpu").execute()
+    return _dec_digest(out, lens, i["payloads"])
+
+
+def _dec_batch_ref(i):
+    import jax
+
+    from tpu_zstd.api import decompress
+
+    out, lens = jax.device_get(decompress.prepare_decompress_batch(i["frames"], DEC_N).execute())
+    return _dec_digest(out, lens, i["payloads"])
+
+
+_DEC_FRAMES = {kind: _dec_frames_inputs(kind) for kind in ("accel", "plain", "zstd")}
+for _kind, _make in _DEC_FRAMES.items():
+    case(f"decompress_batch_{_kind}", "decode", _make, _dec_batch_port, _dec_batch_ref)
+
+
+def _staged(kind):
+    """The decode kernels' inputs staged as the decode plan stages them, from
+    `_dec_frames_inputs(kind)` (every block Compressed, with sequences)."""
+    def make():
+        from tpu_zstd_torch.api import decompress as D
+        from tpu_zstd_torch.format.accel import parse_accel_tail
+        from tpu_zstd_torch.format.frame import parse_frame_header
+
+        fr = _DEC_FRAMES[kind]()
+        plans, recs, strides = [], [], None
+        for f in fr["frames"]:
+            meta, end = parse_accel_tail(f)
+            f = f[:end]
+            pos = parse_frame_header(f).header_size
+            bh = int.from_bytes(f[pos : pos + 3], "little")
+            assert (bh >> 1) & 3 == 2, "decode cases need Compressed blocks"
+            plan, _, _ = D._parse_block_plan(f[pos + 3 : pos + 3 + (bh >> 3)], None, None,
+                                             device_literals=meta is not None)
+            plans.append(plan)
+            recs.append(meta.blocks[0] if meta else None)
+            strides = (meta.stride, meta.lit_stride) if meta else None
+        B = len(plans)
+        # Staged widths as the plan stages them (a power of two >= 64 bytes):
+        # the JAX decoders' word windows need slack after a stream's end.
+        S = D._bucket(max(max(len(p.stream) for p in plans), 64), lo=64)
+        st = {"streams": np.zeros((B, S), np.uint8), "tbits": np.zeros(B, np.int32),
+              "nseq": np.zeros(B, np.int32), "sym": np.zeros((B, 3, 512), np.int32),
+              "nb": np.zeros((B, 3, 512), np.int32), "ns": np.zeros((B, 3, 512), np.int32),
+              "logs": np.zeros((B, 3), np.int32)}
+        for b, p in enumerate(plans):
+            st["streams"][b, : len(p.stream)] = np.frombuffer(p.stream, np.uint8)
+            st["tbits"][b], st["nseq"][b] = p.total_bits, p.nbseq
+            st["sym"][b], st["nb"][b], st["ns"][b], st["logs"][b] = p.tables
+        if strides is None:
+            return st
+        C, CL = strides
+        NC = -(-int(st["nseq"].max()) // C)
+        K = max(NC - 1, 1)
+        st.update(C=C, NC=NC, ckb=np.zeros((B, K), np.int32), cks=np.zeros((B, K), np.int32),
+                  ckr=np.ones((B, K, 3), np.int32))
+        for b, rec in enumerate(recs):
+            n = len(rec[1])
+            st["ckb"][b, :n], st["cks"][b, :n], st["ckr"][b, :n] = rec[1], rec[2], rec[3]
+        lsw = D._bucket(max(max(len(s) for p in plans for s in p.litdev[0]), 64), lo=64)
+        NCL = -(-max(max(p.litdev[2]) for p in plans) // CL)
+        lst = {"lstreams": np.zeros((4 * B, lsw), np.uint8), "ltbits": np.zeros(4 * B, np.int32),
+               "lnsym": np.zeros(4 * B, np.int32), "dtab": np.zeros((B, 2048), np.int32),
+               "tlog": np.zeros(B, np.int32), "lck": np.zeros((4 * B, max(NCL - 1, 1)), np.int32),
+               "regen": np.zeros(B, np.int32), "CL": CL, "NCL": NCL}
+        for b, (p, rec) in enumerate(zip(plans, recs)):
+            sts, tb, nsy, packed, tl, rg = p.litdev
+            lst["dtab"][b], lst["tlog"][b], lst["regen"][b] = packed, tl, rg
+            for s in range(4):
+                r = 4 * b + s
+                lst["lstreams"][r, : len(sts[s])] = np.frombuffer(sts[s], np.uint8)
+                lst["ltbits"][r], lst["lnsym"][r] = tb[s], nsy[s]
+                n = min(rec[4].shape[1], NCL - 1)
+                lst["lck"][r, :n] = rec[4][s, :n]
+        return {**st, **lst}
+
+    return make
+
+
+MAX_SEQS_DEC = 44032
+
+
+def _seq_mask(i, outs):
+    live = np.arange(MAX_SEQS_DEC)[None, :] < i["nseq"][:, None]
+    return {k: np.where(live, np.asarray(v), 0) for k, v in zip(("ll", "ml", "off"), outs)}
+
+
+def _seq_port(i):
+    from tpu_zstd_torch.ops import decode
+
+    tables = decode.SeqTables(*(_t(i[k]) for k in ("sym", "nb", "ns", "logs")))
+    args = (_t(i["streams"]), _t(i["tbits"]), tables, _t(i["nseq"]))
+    if "C" in i:
+        out = decode.decode_sequences_device_chunked(
+            *args, _t(i["ckb"]), _t(i["cks"]), _t(i["ckr"]), i["C"], i["NC"], MAX_SEQS_DEC)
+    else:
+        out = decode.decode_sequences_device(
+            *args, _t(np.tile(np.int32([1, 4, 8]), (len(i["nseq"]), 1))), MAX_SEQS_DEC)
+    return {**_seq_mask(i, out[:3]), "rep_fin": out[3]}
+
+
+def _seq_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import decode_jax
+
+    tables = decode_jax.SeqTables(*(jnp.asarray(i[k]) for k in ("sym", "nb", "ns", "logs")))
+    args = (jnp.asarray(i["streams"]), jnp.asarray(i["tbits"]), tables, jnp.asarray(i["nseq"]))
+    if "C" in i:
+        out = decode_jax.decode_sequences_device_chunked(
+            *args, jnp.asarray(i["ckb"]), jnp.asarray(i["cks"]), jnp.asarray(i["ckr"]), i["C"],
+            i["NC"], MAX_SEQS_DEC)
+    else:
+        out = decode_jax.decode_sequences_device(
+            *args, jnp.asarray(np.tile(np.int32([1, 4, 8]), (len(i["nseq"]), 1))), MAX_SEQS_DEC)
+    return {**_seq_mask(i, out[:3]), "rep_fin": out[3]}
+
+
+case("decode_sequences_serial", "decode", _staged("zstd"), _seq_port, _seq_ref)
+case("decode_sequences_chunked", "decode", _staged("accel"), _seq_port, _seq_ref)
+
+
+def _huf_mask(i, syms):
+    syms = np.asarray(syms)
+    return np.where(np.arange(syms.shape[1])[None, :] < i["lnsym"][:, None], syms, 0)
+
+
+def _huf_port(i):
+    from tpu_zstd_torch.ops import decode
+
+    syms = decode.decode_huffman_device(
+        *(_t(i[k]) for k in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")), i["CL"], i["NCL"],
+        _t(i["lck"]))
+    lits = decode.assemble_literals_4stream(syms, _t(i["regen"]), DEC_N)
+    return {"syms": _huf_mask(i, syms), "lits": lits}
+
+
+def _huf_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import decode_jax
+
+    syms = decode_jax.decode_huffman_device(
+        *(jnp.asarray(i[k]) for k in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")), i["CL"],
+        i["NCL"], jnp.asarray(i["lck"]))
+    lits = decode_jax.assemble_literals_4stream(syms, jnp.asarray(i["regen"]), DEC_N)
+    return {"syms": _huf_mask(i, syms), "lits": lits}
+
+
+case("decode_huffman", "decode", _staged("accel"), _huf_port, _huf_ref)
+
+
+def exec_inputs(seed, B, N, W, MS, L):
+    """Valid random sequences (lits, nlit, ll, ml, off, nseq, window): every
+    offset reaches at most into the window, overlapping copies (off < ml)
+    included, tail literals after the last sequence."""
+    rng = np.random.default_rng(seed)
+    ll = np.zeros((B, MS), np.int32)
+    ml = np.zeros((B, MS), np.int32)
+    off = np.ones((B, MS), np.int32)
+    nseq = np.zeros(B, np.int32)
+    nlit = np.zeros(B, np.int32)
+    lits = np.zeros((B, L), np.uint8)
+    for b in range(B):
+        po = lp = s = 0
+        for _ in range(int(rng.integers(0, MS + 1))):
+            llv, mlv = int(rng.integers(0, 20)), int(rng.integers(3, 60))
+            if po + llv + mlv > N - 20 or lp + llv > L - 30 or po + llv + W < 1:
+                break
+            ofv = int(rng.integers(1, 5)) if rng.random() < 0.3 else \
+                int(rng.integers(1, po + llv + W + 1))
+            ll[b, s], ml[b, s], off[b, s] = llv, mlv, ofv
+            po, lp, s = po + llv + mlv, lp + llv, s + 1
+        nseq[b] = s
+        nlit[b] = lp + int(rng.integers(0, min(20, L - lp)))
+        lits[b, : nlit[b]] = rng.integers(0, 256, nlit[b], dtype=np.uint8)
+    window = rng.integers(0, 256, (B, max(W, 1)), dtype=np.uint8)
+    return lits, nlit, ll, ml, off, nseq, window
+
+
+def _exec_inputs():
+    B, N, MS, L = 6, 4096, 96, 2048
+    cases = {f"w{W}": exec_inputs(W + 5, B, N, W, MS, L) for W in (1, 300)}
+    # Literal rows straight from 4-stream symbol rows (lit_src).
+    lits, nlit = cases["w1"][0], cases["w1"][1]
+    seg = np.maximum((nlit + 3) // 4, 1)
+    syms = np.zeros((4 * B, L // 4 + 8), np.uint8)
+    for b in range(B):
+        for s in range(4):
+            part = lits[b, s * seg[b] : min((s + 1) * seg[b], nlit[b])]
+            syms[4 * b + s, : len(part)] = part
+    return {"cases": cases, "N": N, "syms": syms}
+
+
+def _exec_run(fn, i, conv):
+    out = {}
+    for name, args in i["cases"].items():
+        o, n = fn(*(conv(a) for a in args), i["N"], args[6].shape[1])
+        o, n = np.asarray(o), np.asarray(n).astype(np.int64)
+        out[f"{name}_len"] = n
+        out[f"{name}_out"] = np.where(np.arange(i["N"])[None, :] < n[:, None], o, 0)
+    args = i["cases"]["w1"]
+    o, n = fn(*(conv(a) for a in args), i["N"], 1, lit_src=(conv(i["syms"]), conv(args[1])))
+    o, n = np.asarray(o), np.asarray(n).astype(np.int64)
+    out["src_len"] = n
+    out["src_out"] = np.where(np.arange(i["N"])[None, :] < n[:, None], o, 0)
+    return out
+
+
+def _exec_port(i):
+    from tpu_zstd_torch.ops import decode
+
+    return _exec_run(decode.execute_sequences_device, i, _t)
+
+
+def _exec_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import decode_jax
+
+    return _exec_run(decode_jax.execute_sequences_device, i, jnp.asarray)
+
+
+case("execute_sequences", "decode", _exec_inputs, _exec_port, _exec_ref)
+
+
+def _format_inputs():
+    """libzstd frames (levels 1, 3, 9, 19; with checksum, without content
+    size) and the port's accel frames, for the host format copies."""
+    import zstandard
+
+    fr = _DEC_FRAMES["accel"]()
+    base = make_corpus(20000)
+    frames = [zstandard.ZstdCompressor(level=lv, write_checksum=lv == 9).compress(base)
+              for lv in (1, 3, 9, 19)]
+    cobj = zstandard.ZstdCompressor(level=3, write_content_size=False)
+    frames.append(cobj.compress(base[:5000]))
+    return {"frames": frames + fr["frames"]}
+
+
+def _format_run(frame_mod, huf_mod, seq_mod, accel_mod, consts, frames):
+    out = {}
+    for k, f in enumerate(frames):
+        meta, end = accel_mod.parse_accel_tail(f)
+        f = f[:end]
+        h = frame_mod.parse_frame_header(f)
+        out[f"f{k}_hdr"] = [h.content_size or -1, h.window_size or -1, int(h.single_segment),
+                            int(h.has_checksum), h.dict_id, h.header_size]
+        pos = h.header_size
+        bh = int.from_bytes(f[pos : pos + 3], "little")
+        if (bh >> 1) & 3 != 2:
+            continue
+        body = f[pos + 3 : pos + 3 + (bh >> 3)]
+        lit = frame_mod.decode_literals_section(body, None)
+        out[f"f{k}_lits"] = np.frombuffer(lit.data, np.uint8)
+        out[f"f{k}_lit_consumed"] = lit.consumed
+        if body[0] & 3 == 2:  # Compressed literals: the weights header follows
+            out[f"f{k}_huf"] = [lit.huff_table.table_log, lit.huff_table.symbol,
+                                lit.huff_table.nb_bits]
+            sf = (body[0] >> 2) & 3
+            w, c = huf_mod.parse_weights(body[3 if sf <= 1 else sf + 2 :])
+            dt = huf_mod.build_dtable(w)
+            out[f"f{k}_weights"] = [w, c, dt.table_log, dt.symbol, dt.nb_bits]
+        rest = body[lit.consumed :]
+        nbseq, p = seq_mod.read_nbseq(rest)
+        out[f"f{k}_nbseq"] = [nbseq, p]
+        if nbseq == 0:
+            continue
+        modes = rest[p]
+        p += 1
+        for name, shift, norm, log, mx in (
+                ("ll", 6, consts.LL_DEFAULT_NORM, consts.LL_DEFAULT_LOG, 35),
+                ("of", 4, consts.OF_DEFAULT_NORM, consts.OF_DEFAULT_LOG, 31),
+                ("ml", 2, consts.ML_DEFAULT_NORM, consts.ML_DEFAULT_LOG, 52)):
+            dt, c = seq_mod.read_sequence_table(rest[p:], (modes >> shift) & 3, None, norm, log, mx)
+            out[f"f{k}_{name}"] = [dt.table_log, c, dt.symbol, dt.nb_bits, dt.new_state]
+            p += c
+    dts = seq_mod.predefined_dtables() + (seq_mod.rle_dtable(17),)
+    out["predefined"] = [np.concatenate([d.symbol, d.nb_bits, d.new_state]) for d in dts]
+    return {k: np.concatenate([np.ravel(np.asarray(x, np.int64)) for x in v])
+            if isinstance(v, list) else v for k, v in out.items()}
+
+
+def _format_port(i):
+    from tpu_zstd_torch import constants
+    from tpu_zstd_torch.format import accel, frame, huffman, sequences
+
+    return _format_run(frame, huffman, sequences, accel, constants, i["frames"])
+
+
+def _format_ref(i):
+    from tpu_zstd import constants
+    from tpu_zstd.format import accel, frame, huffman, sequences
+
+    return _format_run(frame, huffman, sequences, accel, constants, i["frames"])
+
+
+case("format_decode", "decode", _format_inputs, _format_port, _format_ref)

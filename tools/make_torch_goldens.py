@@ -12,14 +12,19 @@ before anything is written. Targets (default: slice2 cases):
   literals, custom FSE tables): the same batch, the 4-block frame with
   checksum=True, and the level-3 `compress_items_tpu` frames of 16 items of
   64-256 KB (consecutive slices of one corpus; their sizes are recorded);
+- slice3 -> tests/golden/torch_slice3.json, the decode path's input: the
+  bench batch make_corpus(128 * 131072) as 128 single-block items through
+  `compress_items_tpu` at level 3 with decode_accel=True (the frames that
+  bench.py decodes; accel sidecar included), each item's and frame's length
+  and sha256, and the first 4 items again with a content checksum;
 - cases -> tests/golden/torch_cases.json, the digest of every seeded case in
   tests/torch_cases.py (small shapes: kernels, parse, table choice, state
   chains, Huffman stages, frames at 8-16 KB blocks, levels 1/3/5).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [cases]
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [cases]
 
-About 4 minutes for slice1, 7 for slice2 and 6 for cases on the CPU. Give
-slice1 or slice2 a fresh process (or list it first): after the ~40 case
+About 4 minutes for slice1, 7 for slice2 and slice3 and 6 for cases on the
+CPU. Give slice1, slice2 or slice3 a fresh process (or list it first): after the ~40 case
 compiles, XLA:CPU's compile of the full-width batch failed for lack of memory
 mappings in the same process.
 """
@@ -27,6 +32,7 @@ mappings in the same process.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import hashlib
 import json
 import os
@@ -48,7 +54,7 @@ import numpy as np  # noqa: E402
 import zstandard  # noqa: E402
 
 from bench import make_corpus  # noqa: E402
-from tpu_zstd.api.config import CompressionConfig  # noqa: E402
+from tpu_zstd.api.config import ChecksumPolicy, CompressionConfig  # noqa: E402
 from tpu_zstd.api.manager import compress_items_tpu  # noqa: E402
 from tpu_zstd.constants import BLOCK_RLE  # noqa: E402
 from tpu_zstd.format.frame import write_frame_header  # noqa: E402
@@ -64,6 +70,7 @@ GOLDEN = ROOT / "tests" / "golden"
 BATCH_BLOCKS = 128
 FRAME_BLOCKS = 4
 ITEMS_SEED, ITEMS_COUNT = 2026, 16
+CHECKSUM_ITEMS = 4
 
 
 def _sha(b: bytes) -> str:
@@ -148,6 +155,27 @@ def slice2() -> None:
     _write("torch_slice2.json", doc)
 
 
+def slice3() -> None:
+    N = DEFAULT_CONFIG.block_size
+    data = make_corpus(BATCH_BLOCKS * N)
+    items = [data[i * N : (i + 1) * N] for i in range(BATCH_BLOCKS)]
+    ccfg = dataclasses.replace(CompressionConfig.from_level(3), decode_accel=True)
+    frames = compress_items_tpu(items, ccfg)
+    ck_cfg = dataclasses.replace(ccfg, checksum=ChecksumPolicy.COMPUTE)
+    ck_frames = compress_items_tpu(items[:CHECKSUM_ITEMS], ck_cfg)
+    for f, d in zip(frames + ck_frames, items + items[:CHECKSUM_ITEMS]):
+        _decodes(f, d, "an accel item frame")
+    doc = {
+        "config": {k: int(v) if isinstance(v, enum.Enum) else v
+                   for k, v in dataclasses.asdict(ccfg).items()},
+        "corpus": f"make_corpus({BATCH_BLOCKS} * {N}), one item per {N} bytes",
+        "items": [{"len": len(d), "sha256": _sha(d)} for d in items],
+        "frames": [{"len": len(f), "sha256": _sha(f)} for f in frames],
+        "checksum_frames": [{"len": len(f), "sha256": _sha(f)} for f in ck_frames],
+    }
+    _write("torch_slice3.json", doc)
+
+
 def cases() -> None:
     import torch_cases
 
@@ -160,7 +188,7 @@ def cases() -> None:
                                 "cases": out})
 
 
-TARGETS = {"slice1": slice1, "slice2": slice2, "cases": cases}
+TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "cases": cases}
 
 
 def main(argv: list[str]) -> None:

@@ -1,6 +1,6 @@
-"""Where the PyTorch port's batch-compress time goes, on one CUDA GPU.
+"""Where the PyTorch port's batch time goes, on one CUDA GPU.
 
-    python3 tools/torch_profile.py [--config default|slice] [--out DIR]
+    python3 tools/torch_profile.py [--config default|slice] [--path compress|decode] [--out DIR]
 
 Runs the bench batch (make_corpus(128 * 131072), 128 x 128 KB blocks) at
 DEFAULT_CONFIG (or SLICE_CONFIG) through `compress_blocks_staged` and
@@ -20,6 +20,13 @@ reports, each beside the card's name and power limit:
    to DIR/torch_profile_trace.json: the device activities in it
    (kernels, copies, sets), their busy time (union of intervals) against the
    batch's time (the device's idle share), and device time by kernel name.
+
+With --path decode the batch is the decode of the bench batch's 128 level-3
+decode_accel frames (bench.py's decode): `prepare_decompress_batch(frames)`
+once, then the stages are the decode kernels' wrappers (K7
+decode_sequences_lanes, K6 decode_huffman_lanes, K8/K9 execute_sequences,
+each timed alone on every input one execute() hands it, summed) and the
+batch is one `execute()` with its lengths fetched.
 """
 
 from __future__ import annotations
@@ -79,6 +86,86 @@ def _device_activity(trace_path: pathlib.Path, top: int = 20) -> dict:
     }
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _trace_summary(out_dir: pathlib.Path, card: str, prof, batch_ms: float, wall_ms: float,
+                   summary: dict) -> None:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_path = out_dir / "torch_profile_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    summary.update(_device_activity(trace_path))
+    busy = summary["device_busy_ms"]
+    print(f"profile [{card}]: {summary['device_activities']} device activities (kernels, copies, "
+          f"sets), device busy {busy:.3f} ms; idle share {1 - busy / batch_ms:.3f} of the "
+          f"unprofiled batch ({batch_ms:.3f} ms), {1 - busy / wall_ms:.3f} of the profiled one "
+          f"({wall_ms:.3f} ms)")
+    for row in summary["top"]:
+        print(f"profile [{card}]   {row['ms']:9.3f} ms  x{row['count']:5d}  {row['name'][:110]}")
+    (out_dir / "torch_profile.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps({"batch_ms": batch_ms, "device_busy_ms": busy, "wall_ms": wall_ms}))
+
+
+def _decode_profile(opts) -> int:
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_zstd_torch.api import decompress
+    from tpu_zstd_torch.api.config import CompressionConfig
+    from tpu_zstd_torch.api.manager import compress_items
+    from tpu_zstd_torch.corpus import make_corpus
+
+    card = _card()
+    data = make_corpus(B * N)
+    cfg = dataclasses.replace(CompressionConfig.from_level(3), decode_accel=True)
+    frames = compress_items([data[i * N : (i + 1) * N] for i in range(B)], cfg, device="cuda")
+    plan = decompress.prepare_decompress_batch(frames, max_block=N)
+    plan.execute()
+    torch.cuda.synchronize()
+    sites = ("decode_sequences_lanes", "decode_huffman_lanes", "execute_sequences")
+    captured: dict = {a: [] for a in sites}
+    originals = {a: getattr(decompress, a) for a in sites}
+
+    def recorder(attr):
+        def call(*args, **kw):
+            captured[attr].append((args, kw))
+            return originals[attr](*args, **kw)
+
+        return call
+
+    for a in sites:
+        setattr(decompress, a, recorder(a))
+    plan.execute()
+    torch.cuda.synchronize()
+    for a in sites:
+        setattr(decompress, a, originals[a])
+    stage = {a: sum(_time_ms(lambda: originals[a](*args, **kw)) for args, kw in calls)
+             for a, calls in captured.items()}
+
+    def one_batch():
+        plan.execute()[1].cpu()
+
+    batch_ms = _time_ms(one_batch)
+    for attr, ms in stage.items():
+        print(f"stage [{card}] {attr} ({len(captured[attr])} calls): {ms:.3f} ms")
+    print(f"stage [{card}] execute() with lengths fetched: {batch_ms:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_batch()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _trace_summary(pathlib.Path(opts.out), card, prof, batch_ms, wall_ms,
+                   {"card": card, "path": "decode", "stage_ms": stage, "batch_ms": batch_ms,
+                    "wall_ms_profiled": wall_ms})
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -88,18 +175,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "profile_out"), help="trace and summary directory")
     ap.add_argument("--config", choices=("default", "slice"), default="default")
+    ap.add_argument("--path", choices=("compress", "decode"), default="compress")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
+    if opts.path == "decode":
+        return _decode_profile(opts)
     from tpu_zstd_torch.corpus import make_corpus
     from tpu_zstd_torch.ops import fse, huffman, lz77, pipeline
     from tpu_zstd_torch.ops.pipeline import DEFAULT_CONFIG, SLICE_CONFIG, compress_blocks_staged
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = _card()
     cfg = DEFAULT_CONFIG if opts.config == "default" else SLICE_CONFIG
     data = make_corpus(B * N)
     blocks = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).reshape(B, N).copy()).cuda()
@@ -148,28 +235,15 @@ def main() -> int:
           f"{batch_ms:.3f} ms")
 
     # --- 2. profiler trace -------------------------------------------------------------
-    out_dir = pathlib.Path(opts.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         compress_blocks_staged(blocks, lengths, cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_path = out_dir / "torch_profile_trace.json"
-    prof.export_chrome_trace(str(trace_path))
-    summary = {"card": card, "config": opts.config, "stage_ms": stage, "batch_ms": batch_ms,
-               "wall_ms_profiled": wall_ms}
-    summary.update(_device_activity(trace_path))
-    busy = summary["device_busy_ms"]
-    print(f"profile [{card}]: {summary['device_activities']} device activities (kernels, copies, "
-          f"sets), device busy {busy:.3f} ms; idle share {1 - busy / batch_ms:.3f} of the "
-          f"unprofiled batch ({batch_ms:.3f} ms), {1 - busy / wall_ms:.3f} of the profiled one "
-          f"({wall_ms:.3f} ms)")
-    for row in summary["top"]:
-        print(f"profile [{card}]   {row['ms']:9.3f} ms  x{row['count']:5d}  {row['name'][:110]}")
-    (out_dir / "torch_profile.json").write_text(json.dumps(summary, indent=1))
-    print(json.dumps({"batch_ms": batch_ms, "device_busy_ms": busy, "wall_ms": wall_ms}))
+    _trace_summary(pathlib.Path(opts.out), card, prof, batch_ms, wall_ms,
+                   {"card": card, "config": opts.config, "stage_ms": stage,
+                    "batch_ms": batch_ms, "wall_ms_profiled": wall_ms})
     return 0
 
 

@@ -6,9 +6,11 @@ flatten into one (B, 128 KB) batch padded to a power-of-two bucket, the
 batch runs through `compress_blocks_staged`, the contents are trimmed on the
 device to the largest non-Raw block before the copy to the host, and each
 item's frame is assembled in Python (Raw blocks take the caller's bytes).
-Levels 1-6 run; LDM, streaming history, decode-acceleration metadata,
-dictionary IDs and levels >= 7 (LDM, optimal parse) belong to later slices
-of the port and raise NotImplementedError.
+With `decode_accel` every frame carries a trailing skippable frame of
+decoder checkpoints (format/accel.py), as the reference writes it. Levels
+1-6 run; LDM, streaming history, dictionary IDs and levels >= 7 (LDM,
+optimal parse) belong to later slices of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,15 +22,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import BLOCK_RAW, BLOCK_RLE
+from ..constants import BLOCK_COMPRESSED, BLOCK_RAW, BLOCK_RLE
+from ..format.accel import write_accel_frame
 from ..format.frame import write_frame_header
 from ..format.xxhash import content_checksum
 from ..ops.pipeline import PipelineConfig, check_supported, compress_blocks_staged, resolve_device
 from .config import ChecksumPolicy, CompressionConfig, CompressionStats, Status, Strategy
 
 
+# Decoder-checkpoint stride (sequences per chunk; format/accel.py).
+ACCEL_STRIDE = 256
+
+
 def _pipeline_config(cfg: CompressionConfig) -> PipelineConfig:
-    """The reference's level -> pipeline mapping (without decode checkpoints)."""
+    """The reference's level -> pipeline mapping."""
     return PipelineConfig(
         block_size=cfg.block_size,
         hash_log=min(cfg.hash_log, 17),
@@ -41,7 +48,7 @@ def _pipeline_config(cfg: CompressionConfig) -> PipelineConfig:
         of_gate=(8, 12) if cfg.level >= 3 else (99, 99),
         mf_win_log=(13 if cfg.level <= 6 else 14 if cfg.level <= 9
                     else 15 if cfg.level <= 12 else 16),
-        ckpt_every=0,
+        ckpt_every=ACCEL_STRIDE if cfg.decode_accel else 0,
         sample_log=0,
         ldm=cfg.level >= 7,
     )
@@ -57,14 +64,13 @@ def _bucket(n: int, lo: int = 8) -> int:
 def _check_port_supports(cfg: CompressionConfig) -> None:
     later = [name for name, on in (
         ("enable_ldm", cfg.enable_ldm),
-        ("decode_accel", cfg.decode_accel),
         ("dict_id", cfg.dict_id),
         ("level >= 7 (LDM, optimal parse)", cfg.level >= 7),
     ) if on]
     if later:
         raise NotImplementedError(
             f"not supported by the port yet: {', '.join(later)} (a later slice: LDM and "
-            "optimal parse, decode acceleration, dictionaries)"
+            "optimal parse, dictionaries)"
         )
 
 
@@ -112,13 +118,15 @@ def compress_items(
         blocks_np[b, : len(chunk)] = chunk
         lens_np[b] = len(chunk)
 
-    contents_d, clens_d, btypes_d = compress_blocks_staged(
+    out = compress_blocks_staged(
         torch.from_numpy(blocks_np).to(dev), torch.from_numpy(lens_np).to(dev), pcfg
     )
+    contents_d = out[0]
     # Two-phase fetch: lengths and types first, then the contents trimmed to
     # the largest non-Raw block (Raw blocks re-use the caller's bytes).
-    clens = clens_d.cpu().numpy()
-    btypes = btypes_d.cpu().numpy()
+    clens = out[1].cpu().numpy()
+    btypes = out[2].cpu().numpy()
+    accel_meta = _accel_frames(out, btypes, spans, B, pcfg) if pcfg.ckpt_every else None
     nonraw = btypes[:B] != BLOCK_RAW
     mx = int(clens[:B][nonraw].max()) if nonraw.any() else 1
     width = min(_bucket(max(mx, 64), lo=64), N)
@@ -148,7 +156,44 @@ def compress_items(
                 parts.append(((clen << 3) | (btype << 1) | last).to_bytes(3, "little"))
                 parts.append(contents[b, :clen].tobytes())
         outs.append(b"".join(parts + tail))
+    if accel_meta:
+        return [f + m for f, m in zip(outs, accel_meta)]
     return outs
+
+
+def _accel_frames(out, btypes, spans, B: int, pcfg: PipelineConfig) -> list[bytes]:
+    """One skippable checkpoint frame per item (the reference's sidecar
+    assembly): per block its nseq, the sequence checkpoints trimmed to
+    ceil(nseq / C) - 1 records and, where the block's literals are
+    Huffman-coded, the literal checkpoints trimmed to ceil(ceil(nlit / 4) /
+    CL) - 1 records per stream; empty records for Raw / RLE blocks and
+    blocks without sequences."""
+    C, CL = pcfg.ckpt_every, pcfg.lit_ckpt_every
+    nseq_h = out[6].cpu().numpy().astype(np.int64)
+    nck = np.maximum(-(-nseq_h // C) - 1, 0)
+    mx_ck = int(nck[:B].max()) if B else 0
+    ckb, cks, ckr = (out[k][:, :mx_ck].cpu().numpy() for k in (3, 4, 5))
+    lck = None
+    if pcfg.huffman_literals:
+        lit_used_h = out[8].cpu().numpy()
+        seg_h = -(-out[9].cpu().numpy().astype(np.int64) // 4)
+        nckl = np.where(lit_used_h, np.maximum(-(-seg_h // CL) - 1, 0), 0)
+        mx_ckl = int(nckl[:B].max()) if B else 0
+        lck = out[7][:, :, :mx_ckl].cpu().numpy() if mx_ckl else None
+    e = np.empty(0, np.uint32)
+    el = np.zeros((4, 0), np.uint32)
+    metas = []
+    for first, nb in spans:
+        recs = []
+        for b in range(first, first + nb):
+            if btypes[b] == BLOCK_COMPRESSED and nseq_h[b] > 0:
+                n = int(nck[b])
+                lc = lck[b, :, : int(nckl[b])] if lck is not None and nckl[b] > 0 else el
+                recs.append((int(nseq_h[b]), ckb[b, :n], cks[b, :n], ckr[b, :n], lc))
+            else:
+                recs.append((0, e, e, e, el))
+        metas.append(write_accel_frame(C, recs, lit_stride=CL))
+    return metas
 
 
 @dataclass

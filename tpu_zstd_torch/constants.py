@@ -1,7 +1,8 @@
 """RFC 8878 (Zstandard) format constants and code tables.
 
-The port's own copy of the tables it needs (magic, block types, LL/ML code
-tables and extra bits, predefined FSE distributions); values follow RFC 8878
+The port's own copy of the tables it needs (magics, block, literal and
+sequence-mode types, LL/ML code tables and extra bits, predefined FSE
+distributions, FSE and Huffman limits); values follow RFC 8878
 and are held equal to tpu_zstd/constants.py by the tests.
 """
 
@@ -11,6 +12,8 @@ import numpy as np
 
 # --- Frame-level magic numbers -------------------------------------------------
 ZSTD_MAGIC = 0xFD2FB528
+SKIPPABLE_MAGIC_MIN = 0x184D2A50
+SKIPPABLE_MAGIC_MAX = 0x184D2A5F
 
 BLOCK_SIZE_MAX = 128 * 1024  # RFC 8878 Block_Maximum_Size upper bound
 
@@ -19,10 +22,19 @@ BLOCK_RAW = 0
 BLOCK_RLE = 1
 BLOCK_COMPRESSED = 2
 
+# Literals block types (2-bit field in the literals section header)
+LIT_RAW = 0
+LIT_RLE = 1
+LIT_COMPRESSED = 2  # Huffman with its table
+LIT_TREELESS = 3    # Huffman reusing the previous table
+
 # Sequence-section compression modes (2-bit fields of the modes byte)
 SEQ_PREDEFINED = 0
 SEQ_RLE = 1
 SEQ_FSE = 2
+SEQ_REPEAT = 3
+
+REPCODE_INIT = (1, 4, 8)  # RFC 8878 §3.1.1.5: initial repeat offsets
 
 # --- Literals-length codes (RFC 8878 table: code -> (baseline, nb extra bits)) --
 _LL_EXTRA = [(code, 0) for code in range(16)] + [
@@ -101,3 +113,13 @@ OF_DEFAULT_NORM = np.array(
     dtype=np.int32,
 )
 OF_DEFAULT_LOG = 5
+
+# FSE and Huffman limits
+FSE_MAX_TABLELOG = 12
+FSE_MIN_TABLELOG = 5
+HUF_MAX_BITS = 11  # literal code-length limit (decode tables of 2^11 entries)
+
+
+def highbit32(v: int) -> int:
+    """Position of the highest set bit of a Python int v >= 1."""
+    return int(v).bit_length() - 1

@@ -1,9 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
-All kernel sources (`tpu_zstd_torch/csrc/*.cu`) compile with ONE `nvcc` call
-into a shared library with a plain C interface, loaded with `ctypes`. The
-library lives in `tpu_zstd_torch/_build/`, named by a hash of the sources and
-flags, so it is built at first use and rebuilt whenever a source changes.
+Each kernel source (`tpu_zstd_torch/csrc/*.cu`) compiles to an object with
+its own `nvcc` process, all started together, and one more `nvcc` call
+links the objects into a shared library with a plain C interface, loaded
+with `ctypes`. The library lives in `tpu_zstd_torch/_build/`, named by a
+hash of the sources and flags, so it is built at first use and rebuilt
+whenever a source changes.
 Each C entry point launches on the caller's stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 
@@ -30,7 +32,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -43,9 +45,13 @@ SIGNATURES = {
     "tz_greedy_segments": (P, P, I64, I32, P),
     "tz_rep_codes": (P, P, I32, I32, P),
     "tz_state_chain3": (P,) * 11 + (I32, I32, I32, P),
+    "tz_decode_huffman": (P,) * 7 + (I32,) * 6 + (P,),
+    "tz_decode_sequences": (P,) * 12 + (I32,) * 7 + (P,),
+    "tz_exec_sequences": (P,) * 11 + (I32,) * 6 + (P,),
 }
 
-launches = {"roll": 0, "concat": 0, "greedy": 0, "rep": 0, "chain": 0}
+launches = {"roll": 0, "concat": 0, "greedy": 0, "rep": 0, "chain": 0,
+            "decode_huf": 0, "decode_seq": 0, "exec": 0}
 
 # Filled by the first build in this process: seconds spent in nvcc and the
 # assembler's register / shared-memory report (`-Xptxas -v`).
@@ -75,7 +81,7 @@ def library() -> ctypes.CDLL:
         return _lib
     srcs = sorted(CSRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     key = h.hexdigest()[:16]
@@ -83,15 +89,28 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libtzk_{key}.so"
     report = BUILD_DIR / f"libtzk_{key}.ptxas.txt"
     if not so.exists():
-        tmp = BUILD_DIR / f".libtzk_{key}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in srcs]]
+        tag = f"{key}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f".{p.stem}.{tag}.o" for p in srcs]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [(p.name, proc.communicate()[0], proc.returncode) for p, proc in zip(srcs, procs)]
+        failed = [f"{name} ({rc}):\n{log}" for name, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = BUILD_DIR / f".libtzk_{tag}.so"
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}"
+                               f"\n{link.stderr}")
         secs = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        report.write_text(res.stdout + res.stderr)
+        report.write_text("".join(log for _, log, _ in logs))
         os.replace(tmp, so)
+        for o in objs:
+            o.unlink()
         build_info["seconds"] = secs
     build_info["ptxas"] = report.read_text() if report.exists() else ""
     build_info["library"] = str(so)

@@ -334,16 +334,60 @@ def encode_sequences_predefined(
     return out, hdr_len + has * stream_bytes
 
 
+# --- Decoder repcode triples (decode checkpoints) ------------------------------------
+
+# Source slot of each new rep slot per step kind (3 = the step's own offset):
+# identity (inactive / rep0), rep1 read, rep2 read, front insert.
+_REP_SRC_TABLE = ((0, 1, 2), (1, 0, 2), (2, 0, 1), (3, 0, 1))
+
+
+def _rep_prefix(ob, ll, off, nseq) -> torch.Tensor:
+    """Decoder repcode triple BEFORE each decode step (RFC 8878 §3.1.1.5).
+
+    ob/ll/off (B, ms) in decode order (offset value, literal length,
+    resolved offset); nseq (B,). Each step's rep update is a slot
+    permutation (rep0/1/2 reads) or a front insert of the resolved offset,
+    so the prefix over steps is an associative composition of
+    {permutation | insert} ops, taken in log2(ms) doubling rounds (the JAX
+    package's associative scan). Returns (B, ms, 3) int64.
+    """
+    B, ms = ob.shape
+    dev = ob.device
+    ob = ob.to(torch.int64)
+    act = torch.arange(ms, device=dev) < nseq.to(torch.int64)[:, None]
+    idx = ob - 1 + (ll == 0).to(torch.int64)
+    is_insert = (ob > 3) | (idx == 3)
+    case = torch.where(act, torch.where(is_insert, 3, torch.clamp(idx, 0, 2)), 0)
+    src = torch.tensor(_REP_SRC_TABLE, dtype=torch.int64, device=dev)[case]  # (B, ms, 3)
+    const = off.to(torch.int64)[..., None].expand(B, ms, 3)
+    d = 1
+    while d < ms:  # inclusive scan: step t composed after steps t-d, t-2d, ...
+        a_src, a_const = src[:, :-d], const[:, :-d]
+        b_src, b_const = src[:, d:], const[:, d:]
+        sel = torch.clamp(b_src, 0, 2)
+        ins = b_src == 3
+        c_src = torch.where(ins, 3, a_src.gather(2, sel))
+        c_const = torch.where(ins, b_const, a_const.gather(2, sel))
+        src = torch.cat([src[:, :d], c_src], 1)
+        const = torch.cat([const[:, :d], c_const], 1)
+        d *= 2
+    init = torch.tensor((1, 4, 8), dtype=torch.int64, device=dev)
+    rep_after = torch.where(src == 3, const, init[torch.clamp(src, 0, 2)])
+    return torch.cat([init.expand(B, 1, 3), rep_after[:, :-1]], 1)
+
+
 # --- Per-block table selection (custom FSE) ------------------------------------------
 
 
-def prepare_sequences_auto(ll, ml, ob, nseq, max_seqs: int) -> dict:
+def prepare_sequences_auto(ll, ml, ob, nseq, max_seqs: int, off=None) -> dict:
     """Bucket-independent half of the auto sequence encoder, per block.
 
     ll/ml/ob (B, max_seqs) (entries >= nseq ignored), nseq (B,). Reverses to
     encoder order, maps codes and builds each stream's tables (RLE / custom
     FSE / predefined, ops/fse_tables.py). Stream-stacked entries are
-    (B, 3, ...) in LL, OF, ML order, alphabets padded to 53 symbols.
+    (B, 3, ...) in LL, OF, ML order, alphabets padded to 53 symbols. With
+    the resolved offsets `off`, "rep_pre" holds the decoder's rep triple
+    before each decode step (for decode checkpoints).
     """
     from .fse_tables import choose_stream_tables, stream_specs
 
@@ -375,6 +419,7 @@ def prepare_sequences_auto(ll, ml, ob, nseq, max_seqs: int) -> dict:
         "r_ll": r_ll,
         "r_ml": r_ml,
         "r_ob": r_ob,
+        "rep_pre": _rep_prefix(ob, ll, off, nseq) if off is not None else None,
         "rsym3": torch.stack([r_llc, r_ofc, r_mlc], 1),
         "r_llb": _small_lut(d["LL_BITS"], r_llc),
         "r_mlb": _small_lut(d["ML_BITS"], r_mlc),
@@ -391,13 +436,18 @@ def prepare_sequences_auto(ll, ml, ob, nseq, max_seqs: int) -> dict:
     }
 
 
-def encode_prepared(prep: dict, nseq: torch.Tensor, msb: int, out_bytes_cap: int):
+def encode_prepared(
+    prep: dict, nseq: torch.Tensor, msb: int, out_bytes_cap: int, ckpt_every: int = 0
+):
     """Bucket-sized half: state chains, bit fields, deposit, section assembly.
 
     msb >= max(nseq) (the caller picks the bucket); prep arrays are sliced to
     msb (the reversed order puts every live entry in the prefix). The
     3 x B state chains run as one `state_chain3` call. Returns
-    (section_bytes (B, out_bytes_cap + 8) uint8, section_len (B,)).
+    (section_bytes (B, out_bytes_cap + 8) uint8, section_len (B,)), plus
+    with ckpt_every > 0 the decoder checkpoints (ck_bits, ck_states, ck_rep)
+    (B, msb // ckpt_every[, 3]): record c-1 describes decode step
+    c * ckpt_every, zero (reps 1) where that step is not below nseq.
     """
     nseq = nseq.to(torch.int64)
     rsym3 = prep["rsym3"][..., :msb]
@@ -443,6 +493,8 @@ def encode_prepared(prep: dict, nseq: torch.Tensor, msb: int, out_bytes_cap: int
     l3 = torch.where(is_seq, r_ofb, 0)
     lens = torch.stack([l1, l2, l3], dim=-1).reshape(B, -1)
     vals = torch.stack([f1, f2, f3], dim=-1).reshape(B, -1)
+    if ckpt_every:
+        ck = _checkpoints(prep, pre3, l1 + l2 + l3, nseq, msb, ckpt_every)
 
     # Tail: flush ML, OF, LL states (table_log bits each) + sentinel 1-bit.
     has = (nseq > 0).to(torch.int64)
@@ -483,4 +535,29 @@ def encode_prepared(prep: dict, nseq: torch.Tensor, msb: int, out_bytes_cap: int
     out = out + place(prep["desc_of"], d_of, nb_len + has + d_ll, cap)
     out = out + place(prep["desc_ml"], d_ml, nb_len + has + d_ll + d_of, cap)
     out = out + place(words_to_bytes(words), has * stream_bytes, hdr_total, cap)
+    if ckpt_every:
+        return (out, hdr_total + has * stream_bytes) + ck
     return out, hdr_total + has * stream_bytes
+
+
+def _checkpoints(prep, pre3, step_bits, nseq, msb: int, C: int):
+    """Decoder checkpoints for chunk-parallel decode. At decode step
+    j = c * C the decoder's unread-bit cursor is the inclusive prefix of the
+    per-step field bits up to encoder step nseq-1-j, and its three FSE states
+    are the encoder's pre-transition states at encoder step nseq-j (the
+    encoder walks the same state sequence backward); K5's `pre` is defined
+    there, since 1 <= nseq-j < nseq. The rep triple is prep["rep_pre"] at
+    decode step j."""
+    B = pre3.shape[0]
+    cum = torch.cumsum(step_bits, 1)
+    c_ar = torch.arange(1, msb // C + 1, device=pre3.device)
+    t_c = nseq[:, None] - c_ar * C  # encoder step of checkpoint c
+    valid = t_c >= 1
+    ti = torch.clamp(t_c, 1, msb - 1)
+    ck_bits = torch.where(valid, cum.gather(1, ti - 1), 0)
+    st = pre3.gather(2, ti[:, None, :].expand(B, 3, ti.shape[1]))
+    ck_states = torch.where(valid, st[:, 0] | (st[:, 1] << 10) | (st[:, 2] << 20), 0)
+    rep_pre = prep["rep_pre"]
+    j = torch.clamp(c_ar * C, 0, rep_pre.shape[1] - 1)
+    ck_rep = torch.where(valid[..., None], rep_pre[:, j], 1)
+    return ck_bits, ck_states, ck_rep

@@ -226,11 +226,15 @@ def _lut256(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.gather(1, idx.to(torch.int64))
 
 
-def encode_literals_4stream(lits, nlit, lengths, codes, out_cap: int):
+def encode_literals_4stream(lits, nlit, lengths, codes, out_cap: int, ckpt_every: int = 0):
     """4-stream Huffman payload: jump table + 4 backward bitstreams.
 
     lits (B, N) uint8 (the first nlit[b] valid). Returns (payload
-    (B, out_cap + 8) uint8, payload_len (B,), ok (B,)). Streams encode their
+    (B, out_cap + 8) uint8, payload_len (B,), ok (B,)), plus with
+    ckpt_every > 0 the literal decode checkpoints (B, 4, N // 4 //
+    ckpt_every - 1): record c-1 of stream s is the decoder's unread-bit
+    cursor before forward symbol c * ckpt_every, 0 where the stream has no
+    such symbol. Streams encode their
     symbols in reverse position order; each is aligned to position 0 by one
     roll, adjacent symbols merge into one field (two <= 11-bit codes fit 22
     bits), the streams pack by the tree deposit and compose at their byte
@@ -253,6 +257,13 @@ def encode_literals_4stream(lits, nlit, lengths, codes, out_cap: int):
     live = torch.arange(P, device=dev) < (ends - starts)[..., None]
     l_s = torch.where(live, pks >> 12, 0)
     c_s = torch.where(live, pks & 0xFFF, 0)
+    if ckpt_every:
+        # The cursor before forward symbol k is the exclusive prefix of the
+        # reversed-order code lengths at reversed index n_s - k.
+        cume = torch.cumsum(l_s, -1) - l_s
+        c_ar = torch.arange(1, P // ckpt_every, device=dev)
+        ti = (ends - starts)[..., None] - c_ar * ckpt_every
+        lit_ck = torch.where(ti >= 1, cume.gather(2, torch.clamp(ti, 0, P - 1)), 0)
     v2 = c_s[..., 0::2] | (c_s[..., 1::2] << l_s[..., 0::2])  # <= 22 bits
     l2 = l_s[..., 0::2] + l_s[..., 1::2]
 
@@ -282,21 +293,29 @@ def encode_literals_4stream(lits, nlit, lengths, codes, out_cap: int):
     out = torch.cat(
         [jump, words_to_bytes(words), torch.zeros((B, 2), dtype=torch.uint8, device=dev)], -1
     )
+    if ckpt_every:
+        return out, 6 + stream_bytes.sum(-1), ok, lit_ck
     return out, 6 + stream_bytes.sum(-1), ok
 
 
-def compress_literals_huffman(lits: torch.Tensor, nlit: torch.Tensor, out_cap: int):
+def compress_literals_huffman(
+    lits: torch.Tensor, nlit: torch.Tensor, out_cap: int, ckpt_every: int = 0
+):
     """Full Huffman literals payload: weights header + 4-stream body.
 
-    Returns (payload (B, out_cap + 4096) uint8, payload_len (B,), ok (B,)).
-    Callers compare against the Raw representation and pick the smaller.
+    Returns (payload (B, out_cap + 4096) uint8, payload_len (B,), ok (B,)),
+    plus the literal decode checkpoints of `encode_literals_4stream` with
+    ckpt_every > 0 (the code lengths are the same either way: the JAX
+    package's accel limit ACCEL_MAX_BITS equals MAX_BITS). Callers compare
+    against the Raw representation and pick the smaller.
     """
     hist = literal_histogram(lits, nlit)
     lengths, ok_l = build_lengths(hist, nlit, MAX_BITS)
     codes = canonical_codes(lengths)
     whdr, wlen, ok_w = weights_header(lengths)
     fpay, flen, ok_f = weights_fse_payload(lengths)
-    body, blen, ok_s = encode_literals_4stream(lits, nlit, lengths, codes, out_cap)
+    enc = encode_literals_4stream(lits, nlit, lengths, codes, out_cap, ckpt_every)
+    body, blen, ok_s = enc[:3]
 
     # Weights representation: FSE-compressed (headerByte < 128 = its size)
     # when it is valid and smaller, or when direct is impossible (> 128
@@ -312,4 +331,4 @@ def compress_literals_huffman(lits: torch.Tensor, nlit: torch.Tensor, out_cap: i
 
     cap2 = out_cap + 4096
     out = place(hdr_arr, hdr_len, 0, cap2) + place(body, blen, hdr_len, cap2)
-    return out, hdr_len + blen, ok_l & (ok_w | ok_f) & ok_s
+    return (out, hdr_len + blen, ok_l & (ok_w | ok_f) & ok_s) + enc[3:]

@@ -77,7 +77,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     off = {
         "optimal": cfg.optimal,
         "dict_cap": cfg.dict_cap,
-        "ckpt_every": cfg.ckpt_every,
         "ldm": cfg.ldm,
         "ldm_window": cfg.ldm_window,
         "sample_log": cfg.sample_log,
@@ -99,6 +98,8 @@ def check_supported(cfg: PipelineConfig) -> None:
         raise NotImplementedError("seg_log must be <= 10 and divide the block")
     if cfg.cap >= 1 << 10:
         raise NotImplementedError("cap must be < 1024")
+    if cfg.ckpt_every and not cfg.custom_fse:
+        raise NotImplementedError("decode checkpoints (ckpt_every) need custom_fse")
 
 
 def config_from_reference(d: dict) -> PipelineConfig:
@@ -167,7 +168,10 @@ def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: Pipeline
 
     Returns (content (B, N) uint8, content_len (B,), block_type (B,)): the
     block body without its 3-byte header (the frame assembler adds it, since
-    the `last` flag is frame-level).
+    the `last` flag is frame-level). With decode checkpoints and Huffman
+    literals also (lit_ck (B, 4, nck), lit_used (B,)): the literal decode
+    checkpoints and whether they are live (the block is Compressed with
+    Huffman literals).
     """
     N = cfg.block_size
     B = blocks.shape[0]
@@ -192,7 +196,9 @@ def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: Pipeline
     if cfg.huffman_literals:
         # Huffman literals where valid and smaller than the raw section.
         hcap = huff_payload_cap(N)
-        hpay, hlen, h_ok = compress_literals_huffman(lits[:, :N], nlit, hcap)
+        hpay, hlen, h_ok, *lit_ck = compress_literals_huffman(
+            lits[:, :N], nlit, hcap, cfg.lit_ckpt_every if cfg.ckpt_every else 0
+        )
         h_hdr_len = torch.where(
             (nlit < 1024) & (hlen < 1024), 3,
             torch.where((nlit < 16384) & (hlen < 16384), 4, 5),
@@ -223,6 +229,8 @@ def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: Pipeline
         payload[:, :1].expand(B, N),
         torch.where(is_comp[:, None], body, payload),
     )
+    if cfg.ckpt_every and cfg.huffman_literals:
+        return content, content_len, btype, lit_ck[0], is_comp & use_h
     return content, content_len, btype
 
 
@@ -232,17 +240,30 @@ def _parse_prep_stage(blocks: torch.Tensor, lengths: torch.Tensor, cfg: Pipeline
 
 
 def _encode_stage(blocks, lengths, seqs: BlockSequences, cfg: PipelineConfig, msb: int):
-    """Sequence encode at bucket width msb, then assembly."""
+    """Sequence encode at bucket width msb, then assembly.
+
+    Returns (content, clens, btypes); with decode checkpoints (custom FSE
+    tables) the reference's (content, clens, btypes, ck_bits, ck_states,
+    ck_rep, nseq[, lit_ck, lit_used, nlit]), the last three with Huffman
+    literals.
+    """
     cap = cfg.seq_cap_for(msb)
     ll, ml, ob = seqs.ll[:, :msb], seqs.ml[:, :msb], seqs.ob[:, :msb]
+    ck = ()
     if cfg.custom_fse:
-        prep = prepare_sequences_auto(ll, ml, ob, seqs.nseq, msb)
-        seq_bytes, seq_len = encode_prepared(prep, seqs.nseq, msb, cap)
-    else:
+        off = seqs.off[:, :msb] if cfg.ckpt_every else None
+        prep = prepare_sequences_auto(ll, ml, ob, seqs.nseq, msb, off)
+        seq_bytes, seq_len, *ck = encode_prepared(prep, seqs.nseq, msb, cap, cfg.ckpt_every)
+        ck = tuple(ck)
+    else:  # check_supported: no checkpoints here
         seq_bytes, seq_len = encode_sequences_predefined(ll, ml, ob, seqs.nseq, msb, cap)
-    return _assemble_one(
+    out = _assemble_one(
         blocks, lengths, seqs.lits, seqs.nlit, seqs.nseq, seq_bytes, seq_len, cfg
     )
+    if cfg.ckpt_every:
+        lit_extra = out[3:] + (seqs.nlit,) if cfg.huffman_literals else ()
+        return out[:3] + ck + (seqs.nseq,) + lit_extra
+    return out
 
 
 # Bucket ladder for the sequence encode: the smallest entry covering
@@ -257,7 +278,7 @@ def _pick_bucket(bmax: int, full: int) -> int:
 def compress_blocks_staged(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig):
     """Batched block compression: blocks (B, N) uint8 + lengths (B,) ->
     (contents (B, N) uint8, content_lens (B,), block_types (B,)), on the
-    blocks' device."""
+    blocks' device; with decode checkpoints the `_encode_stage` tuple."""
     check_supported(cfg)
     seqs, nseq = _parse_prep_stage(blocks, lengths, cfg)
     msb = _pick_bucket(int(nseq.max()), cfg.max_seqs)
@@ -330,7 +351,7 @@ def compress(
     blocks, lengths = _split_blocks(data, cfg.block_size)
     contents, clens, btypes = compress_blocks_staged(
         torch.from_numpy(blocks).to(dev), torch.from_numpy(lengths).to(dev), cfg
-    )
+    )[:3]
     contents = contents.cpu().numpy()
     clens = clens.cpu().numpy()
     btypes = btypes.cpu().numpy()
