@@ -7,13 +7,16 @@ Phases, in order; any failure exits non-zero:
 
 1. Card and build: the card's name and power limit, the nvcc build of the
    kernels in tpu_zstd_torch/csrc (seconds, registers, shared memory).
-2. Each kernel (K1-K9) against its plain PyTorch version on the card, at the
+2. Each kernel (K1-K10) against its plain PyTorch version on the card, at the
    main paths' shapes (B = 128) on seeded inputs: exact equality (K5 on its
    live range: 1 <= t < nseq and the flush state; the decode kernels K6, K7
    and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
    decode plan stages for 16 seeded 128 KB decode_accel frames (made by the
    port on the card); K8/K9 seeded valid sequences, literals front-compacted
-   or read from 4-stream rows, without and with a 4 KB window.
+   or read from 4-stream rows, without and with a 4 KB window; K10 seeded
+   segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
+   rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
+   per 16 rows).
 3. The first slice's path at full width: the 16 MiB bench batch
    (128 x 128 KB) through `compress_blocks_staged_many` at SLICE_CONFIG, the
    launch counts set to 0 just before and read just after; every block's
@@ -37,12 +40,25 @@ Phases, in order; any failure exits non-zero:
    checksummed frames; each decode kernel against its plain version on the
    inputs it received; then 8 of phase 4's blocks as frames without metadata
    (K7's serial mode, literals decoded on the host) back to their bytes.
+4c. The optimal-parse path at the level-19 pipeline config (min_match 3,
+   depth 48, cap 64, 64 KB match windows, LDM, the segment DP K10): the
+   bench batch through `compress_blocks_staged_many`, the counts set to 0
+   just before and read just after; each block's pass-1 prices (the literal
+   price and the sha256 of its cost-bank row, as K10 received them) and then
+   its (type, length, sha256) against tests/golden/torch_slice4.json; the
+   frames of `BatchManager(level=19).compress_batch` over the 16 items
+   against the same file; each kernel (K1-K5, K10) against its plain version
+   on the inputs it received in that run; K10 launched at least once.
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
-   of 2), peak device memory, the parse and encode stages; the decode as
+   of 2), peak device memory, the parse and encode stages; at level 19 the
+   pipelined batch (best of 2) and its peak device memory; the decode as
    bench.py times it (3 `execute()` calls with their lengths fetched, best of
    2, GB/s = 16 MiB over that time) with its peak device memory; and per
    kernel its time by CUDA events at every captured shape, its bound and its
    plain version's time.
+
+Stock libzstd (`zstandard`) decodes the frames where it is installed; where
+it is not, the run says so once and golden identity stands in for it.
 
 The goldens come from tools/make_torch_goldens.py (the JAX package on the
 CPU). The last three lines are the card's name and power limit, one JSON
@@ -64,8 +80,15 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+# int32 operations a second: 132 SMs x 64 INT32 lanes (Hopper white paper)
+# x the 1.98 GHz boost clock of the H100 SXM.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K10 bound: int32 operations per (position, length) tried and per position.
+OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 8, 12
 B, N = 128, 131072
 REPS = 5
+# A level-19 batch takes ~1 s: its pipelined time is taken over fewer batches.
+REPS_L19 = 3
 
 
 def _fail(msg: str) -> None:
@@ -110,14 +133,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from tpu_zstd_torch.api import decompress
     from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig
-    from tpu_zstd_torch.api.manager import BatchManager, compress_items
+    from tpu_zstd_torch.api.manager import BatchManager, _pipeline_config, compress_items
     from tpu_zstd_torch.constants import BLOCK_RLE
     from tpu_zstd_torch.corpus import make_corpus
     from tpu_zstd_torch.format.frame import write_frame_header
     from tpu_zstd_torch.format.xxhash import content_checksum
     from tpu_zstd_torch.ops import (
-        _kernels, bitpack, chain, concat, decode, decode_lanes, fse, greedy, huffman, lz77, rep,
-        roll,
+        _kernels, bitpack, chain, concat, decode, decode_lanes, fse, greedy, huffman, lz77, opt,
+        rep, roll,
     )
     from tpu_zstd_torch.ops import exec as execmod
     from tpu_zstd_torch.ops.pipeline import (
@@ -138,6 +161,8 @@ def main() -> int:
     golden1 = json.loads((ROOT / "tests" / "golden" / "torch_slice1.json").read_text())
     golden2 = json.loads((ROOT / "tests" / "golden" / "torch_slice2.json").read_text())
     golden3 = json.loads((ROOT / "tests" / "golden" / "torch_slice3.json").read_text())
+    golden4 = json.loads((ROOT / "tests" / "golden" / "torch_slice4.json").read_text())
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -176,6 +201,8 @@ def main() -> int:
                      *decode.execute_sequences_device(*a, **k)),
                  "tpu_zstd_torch/csrc/exec.cu",
                  "tpu_zstd/ops/pallas_exec.py:416 execute_sequences_pallas"),
+        "opt": (opt.opt_steps, opt.opt_steps_plain, "tpu_zstd_torch/csrc/opt.cu",
+                "tpu_zstd/ops/pallas_opt.py:232 opt_steps"),
     }
     # K8 and K9 are one CUDA kernel (csrc/exec.cu); the kernels line gives
     # each TPU kernel its row.
@@ -388,6 +415,18 @@ def main() -> int:
     syms = torch.stack(rows, 1).reshape(4 * B, -1).to(torch.uint8).contiguous()
     hold("exec", tuple(args) + (N, 0), "seeded sequences, literals from 4-stream rows",
          {"lit_src": (syms, nlit)})
+    # K10: seeded segment rows; one bank row and literal price per block of
+    # `per` rows (128 segments of a 128 KB block; 16 of a 16 KB block).
+    for mm, cap, per in ((3, 64, 128), (4, 16, 16)):
+        S = B * per
+        ml = np.where(rng.random((S, 1024)) < 0.5, rng.integers(mm, 128, (S, 1024)), 0)
+        ml2 = np.where(rng.random((S, 1024)) < 0.3, rng.integers(mm, 40, (S, 1024)), 0)
+        packed = (ml | rng.integers(0, 32, (S, 1024)) << 7 | ml2 << 12
+                  | rng.integers(0, 16, (S, 1024)) << 19)
+        lit_bits = np.repeat(rng.integers(8, 177, B), per)
+        bank = np.repeat(rng.integers(0, 400, (B, 128)), per, axis=0)
+        hold("opt", (cu(packed.astype(np.int32)), mm, cap), f"mm {mm} cap {cap} ({S}, 1024)",
+             {"lit_bits": cu(lit_bits.astype(np.int32)), "cost_bank": cu(bank.astype(np.int32))})
     print(f"phase 2: kernels == plain versions on seeded inputs ({time.perf_counter() - t0:.1f} s)")
 
     # --- running a main path with counts ---------------------------------------------
@@ -396,7 +435,8 @@ def main() -> int:
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
     sites = [("roll", bitpack, "roll_rows"), ("concat", lz77, "concat_varlen"),
              ("greedy", lz77, "greedy_segments"), ("rep", lz77, "rep_codes"),
-             ("chain", fse, "state_chain3"), ("chain", huffman, "state_chain3")]
+             ("chain", fse, "state_chain3"), ("chain", huffman, "state_chain3"),
+             ("opt", lz77, "opt_steps")]
 
     def drive(run):
         return record(sites, run, True)
@@ -417,23 +457,41 @@ def main() -> int:
               f"block-body ratio {B * N / int(clens.sum()):.4f}")
         return contents, clens, btypes
 
+    def batch_frame(contents, clens, btypes) -> bytes:
+        """One frame of the batch's B blocks."""
+        parts = [write_frame_header(B * N)]
+        for b in range(B):
+            last = int(b == B - 1)
+            clen = 1 if int(btypes[b]) == BLOCK_RLE else int(clens[b])
+            size = N if int(btypes[b]) == BLOCK_RLE else clen
+            parts += [((size << 3) | (int(btypes[b]) << 1) | last).to_bytes(3, "little"),
+                      contents[b, :clen].tobytes()]
+        return b"".join(parts)
+
+    said_no_libzstd = []
+
     def decodes(frame: bytes, expect: bytes, what: str) -> None:
         if zstandard is None:
+            if not said_no_libzstd:
+                print("libzstd: zstandard is not installed here, so no frame is decoded by "
+                      "libzstd; golden identity stands in (libzstd decoded every golden frame "
+                      "when it was made)")
+                said_no_libzstd.append(True)
             return
         got = zstandard.ZstdDecompressor().decompress(frame, max_output_size=max(len(expect), 1))
         if got != expect:
             _fail(f"libzstd decodes {what} to other bytes")
 
-    def batch_ms(cfg):
+    def batch_ms(cfg, reps=REPS):
         compress_blocks_staged(blocks, lengths, cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dt = float("inf")
         for _ in range(2):
             t0 = time.perf_counter()
-            outs = compress_blocks_staged_many([(blocks, lengths)] * REPS, cfg)
+            outs = compress_blocks_staged_many([(blocks, lengths)] * reps, cfg)
             torch.stack([o[1] for o in outs]).cpu()
-            dt = min(dt, (time.perf_counter() - t0) / REPS)
+            dt = min(dt, (time.perf_counter() - t0) / reps)
         return dt, torch.cuda.max_memory_allocated()
 
     # --- 3. the first slice's path (SLICE_CONFIG) ----------------------------------------
@@ -468,14 +526,7 @@ def main() -> int:
         if launches[k] <= 0:
             _fail(f"kernel {k} was not launched on the DEFAULT_CONFIG path")
     contents, clens, btypes = check_blocks(outs[0], golden2, "phase 4")
-    parts = [write_frame_header(B * N)]
-    for b in range(B):
-        last = int(b == B - 1)
-        clen = 1 if int(btypes[b]) == BLOCK_RLE else int(clens[b])
-        size = N if int(btypes[b]) == BLOCK_RLE else clen
-        parts += [((size << 3) | (int(btypes[b]) << 1) | last).to_bytes(3, "little"),
-                  contents[b, :clen].tobytes()]
-    decodes(b"".join(parts), data, "the DEFAULT_CONFIG batch frame")
+    decodes(batch_frame(contents, clens, btypes), data, "the DEFAULT_CONFIG batch frame")
 
     small = make_corpus(4 * N)
     t0 = time.perf_counter()
@@ -575,6 +626,49 @@ def main() -> int:
           f"(launches {ser_launches}; {t_ser:.2f} s with the host literal decode)")
     hold_captured(ser_captured, "phase 4b serial")
 
+    # --- 4c. the optimal-parse path (level 19) --------------------------------------------
+    cfg19 = _pipeline_config(CompressionConfig.from_level(19))
+    gcfg4 = {**golden4["config"], "of_gate": tuple(golden4["config"]["of_gate"])}
+    if dataclasses.asdict(cfg19) != gcfg4:
+        _fail(f"phase 4c: the level-19 pipeline config differs from the golden's: {cfg19}")
+    t0 = time.perf_counter()
+    outs19, launches19, captured19 = drive(
+        lambda: compress_blocks_staged_many([(blocks, lengths)], cfg19))
+    print(f"phase 4c: level-19 path launches {launches19} "
+          f"(first batch {time.perf_counter() - t0:.2f} s)")
+    for k in ("roll", "concat", "greedy", "rep", "chain", "opt"):
+        if launches19[k] <= 0:
+            _fail(f"kernel {k} was not launched on the level-19 path")
+    (_, kw19, _), = captured19["opt"].values()
+    lit19 = kw19["lit_bits"].reshape(B, -1)[:, 0].cpu().numpy()
+    bank19 = kw19["cost_bank"].reshape(B, -1, 128)[:, 0].cpu().numpy()
+    gb4 = golden4["batch"]["blocks"]
+    bad = [(b, int(lit19[b]), g["lit_price"]) for b, g in enumerate(gb4)
+           if (int(lit19[b]), _sha(bank19[b].astype("<i4").tobytes()))
+           != (g["lit_price"], g["bank_sha256"])]
+    if bad:
+        _fail(f"phase 4c: the pass-1 prices of {len(bad)} blocks differ from the JAX golden "
+              f"(block, port lit_price, golden lit_price; first: {bad[:8]})")
+    print(f"phase 4c: pass-1 prices (literal price, cost-bank row) of all {len(gb4)} blocks "
+          f"== JAX golden")
+    contents19, clens19, btypes19 = check_blocks(outs19[0], golden4, "phase 4c")
+    decodes(batch_frame(contents19, clens19, btypes19), data, "the level-19 batch frame")
+    gi4 = golden4["items"]
+    base4 = make_corpus(sum(gi4["sizes"]))
+    starts4 = np.cumsum([0] + gi4["sizes"][:-1])
+    items4 = [base4[s : s + n] for s, n in zip(starts4, gi4["sizes"])]
+    t0 = time.perf_counter()
+    mgr19 = BatchManager(level=gi4["level"])
+    res19 = mgr19.compress_batch(items4)
+    t_mgr19 = time.perf_counter() - t0
+    for k, (r, g) in enumerate(zip(res19, gi4["frames"])):
+        if (len(r.output), _sha(r.output)) != (g["len"], g["sha256"]):
+            _fail(f"BatchManager(level=19) frame {k} differs from the JAX golden")
+        decodes(r.output, items4[k], f"level-19 BatchManager frame {k}")
+    print(f"phase 4c: BatchManager(level=19).compress_batch: {len(items4)} frames == JAX golden "
+          f"({sum(gi4['sizes'])} bytes in, ratio {mgr19.stats.ratio:.4f}, {t_mgr19:.2f} s)")
+    hold_captured(captured19, "phase 4c")
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -587,6 +681,12 @@ def main() -> int:
     enc_ms = _time_ms(lambda: _encode_stage(blocks, lengths, seqs, cfg, msb), 3)
     print(f"time [{card}]: DEFAULT_CONFIG parse stage {parse_ms:.3f} ms; encode stage (bucket "
           f"{msb}: tables, K5 chains, deposit, Huffman literals, assembly) {enc_ms:.3f} ms")
+    reps19 = REPS_L19 if time.perf_counter() - t_start < 600 else 2
+    dt19, peak19 = batch_ms(cfg19, reps19)
+    print(f"time [{card}]: level-19 batch 128x128KB {dt19 * 1e3:.3f} ms = "
+          f"{B * N / dt19 / 1e9:.4f} GB/s (pipelined over {reps19} batches, best of 2); "
+          f"peak device memory {peak19 / 2**30:.3f} GiB; "
+          f"block-body ratio {B * N / int(clens19.sum()):.4f}")
 
     plan = decompress.prepare_decompress_batch(frames, max_block=N)
     plan.execute()
@@ -614,9 +714,20 @@ def main() -> int:
         return int(((total_bits.to(torch.int64) + 7) // 8).sum())
 
     def bound(name, args, kw, out):
-        """Least time for the work: bytes read once + written once over the
-        card's memory rate (the decode kernels: the live stream bytes, symbols,
-        sequences and outputs of this input)."""
+        """Least time for the work and what bounds it: bytes read once +
+        written once over the card's memory rate (the decode kernels: the live
+        stream bytes, symbols, sequences and outputs of this input); K10 the
+        larger of that and its int32 operations for this input's lengths
+        over the card's int32 rate."""
+        if name == "opt":
+            packed, mm, cap = args
+            x = packed.to(torch.int64)
+            lmax = torch.clamp(torch.maximum(x & 127, (x >> 12) & 127), max=cap)
+            tried = int(torch.clamp(lmax - mm + 1, min=0).sum())
+            ops = tried * OPT_OPS_PER_LENGTH + packed.numel() * OPT_OPS_PER_POSITION
+            nb = nbytes(packed) + nbytes(kw["lit_bits"]) + nbytes(kw["cost_bank"]) + nbytes(out)
+            b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+            return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
         if name == "concat":
             x, off, cnt, out_len = args
             c = cnt.to(torch.int64)
@@ -638,7 +749,7 @@ def main() -> int:
             nb = int(nlit_a.sum()) + 12 * int(nseq_a.sum()) + int(out[1].sum())
         else:
             nb = sum(nbytes(a) for a in args if torch.is_tensor(a)) + nbytes(out)
-        return nb / HBM_BYTES_PER_S * 1e3
+        return nb / HBM_BYTES_PER_S * 1e3, "bytes"
 
     def shape_of(name, key):
         if name == "chain":
@@ -649,6 +760,8 @@ def main() -> int:
             return f"{key[0][0][0][0]} streams x {key[0][6]} chunks of {key[0][5]}"
         if name == "exec":
             return f"{key[0][2][0]} ({'lit_src' if key[1] else 'lits'})"
+        if name == "opt":
+            return f"{key[0][0][0]} mm {key[0][1]} cap {key[0][2]}"
         return f"{key[0][0][0]} {key[0][0][1]}"
 
     # Every captured shape is timed; `ms_per_batch` sums the kernel's time over
@@ -657,9 +770,11 @@ def main() -> int:
     # roll at the block width, else the largest input.
     all_captured = {k: captured[k] for k in ("roll", "concat", "greedy", "rep", "chain")}
     all_captured.update({k: dec_captured[k] for k in ("decode_huf", "decode_seq", "exec")})
+    all_captured["opt"] = captured19["opt"]
     all_launches = {**launches, **{k: dec_launches[k] for k in ("decode_huf", "decode_seq",
-                                                                 "exec")}}
-    plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1}
+                                                                 "exec")},
+                    "opt": launches19["opt"]}
+    plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1, "opt": 1}
     rows_out = []
     for name, (kern, plain, source, replaces) in K.items():
         per_batch = 0.0
@@ -672,7 +787,7 @@ def main() -> int:
             out = kern(*args, **kw)
             ms = _time_ms(lambda: kern(*args, **kw), 20)
             plain_ms = _time_ms(lambda: plain(*args, **kw), plain_iters.get(name, 3))
-            b_ms = bound(name, args, kw, out)
+            b_ms, b_by = bound(name, args, kw, out)
             per_batch += n_calls * ms
             shape = shape_of(name, key)
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms, "
@@ -681,9 +796,10 @@ def main() -> int:
                 row = {
                     "name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": all_launches[name], "max_abs_err": max_err[name],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None, "shape": shape,
                     "launches_slice1": launches1.get(name, 0),
+                    "launches_level19": launches19.get(name, 0),
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
                 }
         row["ms_per_batch"] = per_batch
@@ -693,6 +809,7 @@ def main() -> int:
     k8 = next(r for r in rows_out if r["name"] == "exec")
     k8["name"] = "exec_k8"
     rows_out.append({**k8, "name": "exec_k9", "replaces": K9_REPLACES})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the goldens were read")
     print(card)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

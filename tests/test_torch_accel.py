@@ -46,6 +46,22 @@ def _check_settings_equal_reference():
         jm._pipeline_config(ref))
     with pytest.raises(NotImplementedError):  # checkpoints come from the custom encoder
         tp.check_supported(dataclasses.replace(tp.SLICE_CONFIG, ckpt_every=256))
+    # A checkpoint delta that does not fit in 16 bits raises instead of
+    # wrapping (sequence bit positions, then a literal row); one that fits
+    # is written as the reference writes it.
+    e = np.empty(0, np.uint32)
+    el = np.zeros((4, 0), np.uint32)
+
+    def rec(bits):
+        return [(300, np.array(bits, np.uint32), np.zeros((2, 3), np.uint32),
+                 np.ones((2, 3), np.uint32), el)]
+
+    assert ta.write_accel_frame(256, rec([65539, 4])) == ja.write_accel_frame(256, rec([65539, 4]))
+    with pytest.raises(ValueError, match="sequence checkpoint delta 70000"):
+        ta.write_accel_frame(256, rec([70004, 4]))
+    lit = np.array([[90000, 5]] * 4, np.uint32)
+    with pytest.raises(ValueError, match="literal checkpoint delta 89995"):
+        ta.write_accel_frame(256, [(10, e, e, e, lit)], lit_stride=1024)
 
 
 def _items(corpus, bs):

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions, on
-a card, a DEFAULT_CONFIG frame made on the card against the one made on
-the CPU, and the decode of decode_accel frames on the card against the
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions, on
+a card, a DEFAULT_CONFIG frame and an optimal-parse (level 19, trimmed
+search) frame made on the card against the ones made on the CPU, and the
+decode of decode_accel frames on the card against the
 input. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
 exact equality; the K5 state chains on their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
@@ -13,9 +14,11 @@ import pytest
 import torch
 import torch_cases
 
-from tpu_zstd_torch.api import decompress
+from tpu_zstd_torch.api import config, decompress, manager
 from tpu_zstd_torch.corpus import make_corpus
-from tpu_zstd_torch.ops import chain, concat, decode, decode_lanes, greedy, pipeline, rep, roll
+from tpu_zstd_torch.ops import (
+    chain, concat, decode, decode_lanes, greedy, opt, pipeline, rep, roll,
+)
 from tpu_zstd_torch.ops import exec as execmod
 
 
@@ -59,6 +62,15 @@ def test_cuda_kernels_match_plain():
     data = make_corpus(5 * 16384)
     assert pipeline.compress(data, cfg, True, device=dev) == pipeline.compress(
         data, cfg, True, device="cpu")
+    for name in ("opt_steps_mm3_cap64", "opt_steps_mm4_cap16"):
+        i = torch_cases.CASES[name].inputs()
+        args = (_t(i["packed"]).to(dev), i["mm"], i["cap"], _t(i["lit"]).to(dev),
+                _t(i["bank"]).to(dev))
+        assert torch.equal(opt.opt_steps(*args), opt.opt_steps_plain(*args)), name
+    opt_cfg = torch_cases._opt_level_cfg(config, 19)
+    items = [make_corpus(40000), make_corpus(70000)[::-1][:33000]]
+    assert manager.compress_items(items, opt_cfg, device=dev) == manager.compress_items(
+        items, opt_cfg, device="cpu")
     _check_decode_kernels(dev)
 
 

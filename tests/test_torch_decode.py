@@ -262,6 +262,12 @@ def _check_decode_batches(corpus):
     for level in (1, 3, 9, 19):
         cctx = zstandard.ZstdCompressor(level=level, write_checksum=True)
         _decodes([cctx.compress(p) for p in payloads], payloads, verify_checksum=True)
+    # A frame behind an 8-byte skippable frame (and one with its accel
+    # sidecar) decodes to its input; the reference parses the header at
+    # offset 0 there and raises.
+    skip = (0x184D2A50).to_bytes(4, "little") + (0).to_bytes(4, "little")
+    lead = [skip + zstandard.ZstdCompressor(level=3).compress(payloads[-1]), skip + port[-1]]
+    _decodes(lead, [payloads[-1]] * 2)
     bad = bytearray(port[-1])
     _, end = parse_accel_tail(bytes(bad))
     bad[end - 1] ^= 0xFF  # the stored checksum's last byte

@@ -11,8 +11,11 @@ DEFAULT_CONFIG frames and level 1/3/5 item frames at 16 KB blocks, with and
 without checksum) and the third (decode checkpoints, decode_accel frames
 and their sidecar, the host format copies, the plain versions of the decode
 kernels K6-K9, and `prepare_decompress_batch` on the port's accel and plain
-frames and on libzstd's); stock libzstd (`zstandard`) decodes every port
-frame.
+frames and on libzstd's) and the fourth (min_match 3, the near-offset band,
+the wide sort key, the search over the whole block, LDM, the plain version
+of the segment DP K10, the optimal parse with its overflow poison, and
+level 7/12/19/22 item frames at 16 KB blocks); stock libzstd (`zstandard`)
+decodes every port frame.
 
 This file imports neither JAX nor the JAX package and compiles nothing; it
 runs in a few seconds. It holds nine items: pytest-xdist's `--dist loadfile`
@@ -21,7 +24,7 @@ beside the nine-item reference files, after every reference file with more
 items, and the reference files keep the order and the workers they have
 without it. The live comparisons against the JAX package
 (tests/test_torch_{kernels,parse,fse,pipeline,fse_custom,huffman,
-manager,accel,decode}.py) also hold the recorded digests against the JAX
+manager,accel,decode,optimal}.py) also hold the recorded digests against the JAX
 package's live output.
 """
 
@@ -36,9 +39,11 @@ import zstandard
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
     "kernels": ["roll_u8", "roll_i32", "concat", "greedy", "rep", "decode_sequences_serial",
-                "decode_sequences_chunked", "decode_huffman", "execute_sequences"],
+                "decode_sequences_chunked", "decode_huffman", "execute_sequences",
+                "opt_steps_mm3_cap64", "opt_steps_mm4_cap16"],
     "deposit_parse_predefined": ["deposit_scatter", "deposit_tree", "parse_8k",
-                                 "encode_predefined"],
+                                 "encode_predefined", "find_matches_wide", "find_matches_whole",
+                                 "find_matches_long", "parse_optimal", "parse_optimal_overflow"],
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
     "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
                    "choose_tables_of", "choose_tables_ml", "format_decode"],
@@ -51,7 +56,9 @@ TOPICS = {
                        "accel_records", "accel_items_16k", "accel_items_16k_checksum",
                        "decompress_batch_accel", "decompress_batch_plain",
                        "decompress_batch_zstd"],
-    "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64"],
+    "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64",
+                     "items_level7", "items_level12", "items_level19", "items_level22",
+                     "frame_whole_block"],
 }
 
 

@@ -3,8 +3,8 @@
 against `compress_items_tpu` at levels 1, 3 and 5 with and without checksum
 (and the seeded cases of tests/torch_cases.py, group "manager"),
 `BatchManager.compress_batch` frames and stats, the content checksum, the
-decode_accel pipeline mapping, and the settings that belong to later
-slices. Every port frame is decoded by
+decode_accel pipeline mapping for every level 1-22, and the settings that
+belong to later slices (enable_ldm, dict_id, streaming history). Every port frame is decoded by
 stock libzstd (`zstandard`). Exact equality. One test item (see
 tests/test_torch_kernels.py).
 """
@@ -37,13 +37,12 @@ def _check_config_copy_and_level_table():
         mine = tm.compression_config_from_reference(dataclasses.asdict(ref))
         assert mine == tc.CompressionConfig.from_level(level), level
         assert mine.validate() == ref.validate()
-        if level <= 6:
-            assert dataclasses.asdict(tm._pipeline_config(mine)) == dataclasses.asdict(
-                jm._pipeline_config(ref)), level
-            accel = dataclasses.replace(ref, decode_accel=True)
-            assert dataclasses.asdict(tm._pipeline_config(
-                tm.compression_config_from_reference(dataclasses.asdict(accel)))) == \
-                dataclasses.asdict(jm._pipeline_config(accel)), level
+        assert dataclasses.asdict(tm._pipeline_config(mine)) == dataclasses.asdict(
+            jm._pipeline_config(ref)), level
+        accel = dataclasses.replace(ref, decode_accel=True)
+        assert dataclasses.asdict(tm._pipeline_config(
+            tm.compression_config_from_reference(dataclasses.asdict(accel)))) == \
+            dataclasses.asdict(jm._pipeline_config(accel)), level
     assert [tm._bucket(n) for n in (0, 1, 8, 9, 100)] == [jm._bucket(n) for n in (0, 1, 8, 9, 100)]
     with pytest.raises(ValueError):
         tm.compression_config_from_reference({"level": 3, "no_such_field": 1})
@@ -55,11 +54,11 @@ def _check_later_slices_raise():
         with pytest.raises(NotImplementedError):
             tm.compress_items([b"abc"], dataclasses.replace(base, **change), device="cpu")
     with pytest.raises(NotImplementedError):
-        tm.compress_items([b"abc"], tc.CompressionConfig.from_level(7), device="cpu")
-    with pytest.raises(NotImplementedError):
         tm.compress_items([b"abc"], base, history=[b""], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.BatchManager(level=19, device="cpu")
+    for level in (7, 19):  # levels 7-22 run since the optimal-parse slice
+        with pytest.raises(NotImplementedError):
+            tm.BatchManager(config=dataclasses.replace(
+                tc.CompressionConfig.from_level(level), enable_ldm=True), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tm.BatchManager(level=3)  # device=None means CUDA

@@ -5,7 +5,7 @@
 predefined FSE tables) on the conftest corpus and a bench-corpus slice;
 stock libzstd (`zstandard`) must decode every port frame. Bytes: exact
 equality. Also the port's configuration, corpus copy, import boundary,
-full-width goldens (tests/golden/torch_slice{1,2}.json, made by
+full-width goldens (tests/golden/torch_slice{1,2,4}.json, made by
 tools/make_torch_goldens.py; the full-width JAX graph is never built here),
 and the seeded SLICE_CONFIG frame cases of tests/torch_cases.py against
 both packages and tests/golden/torch_cases.json.
@@ -25,6 +25,8 @@ import zstandard
 import bench
 from tpu_zstd.ops import pipeline as jp
 from tpu_zstd_torch import corpus
+from tpu_zstd_torch.api import config as tc
+from tpu_zstd_torch.api import manager as tm
 from tpu_zstd_torch.ops import pipeline as tp
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -102,8 +104,8 @@ def _check_config_from_reference():
 
 
 UNSUPPORTED = [
-    {"optimal": True}, {"ldm": True}, {"dict_cap": 4096}, {"ckpt_every": 64},
-    {"sample_log": 1}, {"min_match": 3}, {"mf_win_log": 0},
+    {"dict_cap": 4096}, {"ldm_window": True}, {"ckpt_every": 64}, {"sample_log": 1},
+    {"dec_min_ml": 8}, {"min_match": 5},
 ]
 
 
@@ -145,6 +147,15 @@ def _check_golden_files():
     items = doc["items"]
     assert items["level"] == 3 and len(items["sizes"]) == len(items["frames"])
     assert all(64 * 1024 <= n <= 256 * 1024 for n in items["sizes"])
+    doc4 = json.loads((ROOT / "tests" / "golden" / "torch_slice4.json").read_text())
+    assert tp.config_from_reference(doc4["config"]) == tm._pipeline_config(
+        tc.CompressionConfig.from_level(19))
+    blocks = doc4["batch"]["blocks"]
+    assert len(blocks) == 128 and all(
+        set(b) == {"btype", "clen", "sha256", "lit_price", "bank_sha256"} for b in blocks)
+    assert all(8 <= b["lit_price"] <= 176 for b in blocks)
+    assert doc4["items"]["level"] == 19 and doc4["items"]["sizes"] == items["sizes"]
+    assert len(doc4["items"]["frames"]) == len(items["frames"])
 
 
 def _imported_modules(path: pathlib.Path):
@@ -162,7 +173,8 @@ def _check_port_imports_no_jax_and_no_reference_package():
     assert {f"tpu_zstd_torch/{m}.py" for m in (
         "ops/chain", "ops/fse_tables", "ops/huffman", "format/xxhash", "api/config",
         "api/manager", "ops/decode", "ops/decode_lanes", "ops/exec", "api/decompress",
-        "format/accel", "format/bitstream", "format/huffman", "format/sequences")} <= rel
+        "format/accel", "format/bitstream", "format/huffman", "format/sequences",
+        "ops/opt")} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -947,14 +947,17 @@ case("huffman_literals_ckpt", "accel", _lits_inputs, _huff_ckpt_port, _huff_ckpt
 def _accel_record_inputs():
     """Checkpoint records: a block with u24 reps, one with a rep >= 2^24 (u32
     reps), an empty one, and literal records with zero tails (forward
-    filled by the writer)."""
+    filled by the writer). Neighbouring bit positions lie at most 65535
+    apart (the u16 deltas; one delta is exactly 65535)."""
     rng = np.random.default_rng(24)
     lit = rng.integers(1000, 60000, (4, 5)).astype(np.uint32)
     lit = np.sort(lit, axis=1)[:, ::-1].copy()
     lit[:, 3:] = 0
     blocks = []
     for nck, top in ((6, 1 << 20), (3, 1 << 26), (0, 1)):
-        bits = np.sort(rng.integers(100, 1 << 22, nck))[::-1].astype(np.uint32)
+        gaps = rng.integers(0, 1 << 16, nck)
+        gaps[1:2] = 0xFFFF
+        bits = (100 + np.cumsum(gaps))[::-1].astype(np.uint32)
         states = rng.integers(0, 1 << 29, nck).astype(np.uint32)
         reps = rng.integers(1, top, (nck, 3)).astype(np.uint32)
         blocks.append((int(nck * 256 + 17), bits, states, reps,
@@ -1370,3 +1373,223 @@ def _format_ref(i):
 
 
 case("format_decode", "decode", _format_inputs, _format_port, _format_ref)
+
+
+# --- Slice 4: min_match 3, the wide sort key, LDM, the optimal parse, K10 ------------
+
+
+def _opt_blocks(N, nblocks, seed):
+    """Blocks of N bytes: corpus text, a seeded mix with repeats at short and
+    long distances, a short block and one that repeats a 3-byte pattern."""
+    rng = np.random.default_rng(seed)
+    mix = rng.integers(0, 256, N, dtype=np.uint8)
+    for _ in range(N // 100):
+        ln = int(rng.integers(3, 300))
+        src, dst = rng.integers(0, N - ln, 2)
+        mix[dst:dst + ln] = mix[src:src + ln]
+    datas = [make_corpus(N), mix.tobytes(), make_corpus(N // 3 + 7)[::-1],
+             (b"xyz" + bytes(rng.integers(0, 256, 2, dtype=np.uint8))) * (N // 5)][:nblocks]
+    blocks = np.zeros((len(datas), N), np.uint8)
+    lengths = np.zeros(len(datas), np.int32)
+    for k, d in enumerate(datas):
+        blocks[k, : len(d)] = np.frombuffer(d[:N], np.uint8)
+        lengths[k] = min(len(d), N)
+    return {"blocks": blocks, "lengths": lengths}
+
+
+def _fm_inputs(N, kw):
+    def make():
+        return {**_opt_blocks(N, 4, N), "kw": kw}
+
+    return make
+
+
+def _fm_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    out = lz77.find_matches(_t(i["blocks"]), _t(i["lengths"]), **i["kw"])
+    return {f"out{k}": v for k, v in enumerate(out)}
+
+
+def _fm_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    out = jax.jit(jax.vmap(lambda b, n: lz77_jax.find_matches(b, n, **i["kw"])))(
+        jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]))
+    return {f"out{k}": np.asarray(v) for k, v in enumerate(out)}
+
+
+# min_match 3 with the near-offset band: 32 KB windows of 64 KB blocks with
+# hash_log 17 (17 + 1 + 15 bits: the JAX package's two-key sort), and the
+# search over the whole 32 KB block (mf_win_log 0; 17 + 1 + 15 bits).
+case("find_matches_wide", "optimal",
+     _fm_inputs(65536, dict(hash_log=17, depth=4, cap=16, mf_win_log=15, min_match=3,
+                            two_band=True)), _fm_port, _fm_ref)
+case("find_matches_whole", "optimal",
+     _fm_inputs(32768, dict(hash_log=17, depth=4, cap=16, mf_win_log=0, min_match=3,
+                            two_band=True)), _fm_port, _fm_ref)
+
+
+def _fml_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    ml, off = lz77.find_matches_long(_t(i["blocks"]), _t(i["lengths"]))
+    return {"ml": ml, "off": off}
+
+
+def _fml_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    ml, off = jax.jit(jax.vmap(lz77_jax.find_matches_long))(
+        jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]))
+    return {"ml": np.asarray(ml), "off": np.asarray(off)}
+
+
+case("find_matches_long", "optimal", _fm_inputs(32768, None), _fml_port, _fml_ref)
+
+
+def _opt_inputs(mm, cap, per, nblocks):
+    """Seeded DP rows: `per` segment rows a block share a literal price and
+    a cost-bank row (16 segments a 16 KB block: the per-row bank case)."""
+    def make():
+        rng = np.random.default_rng(mm * 1000 + cap)
+        S, seg = per * nblocks, 1024
+        ml = np.where(rng.random((S, seg)) < 0.5, rng.integers(mm, 128, (S, seg)), 0)
+        ml2 = np.where(rng.random((S, seg)) < 0.3, rng.integers(mm, 40, (S, seg)), 0)
+        packed = (ml | rng.integers(0, 32, (S, seg)) << 7 | ml2 << 12
+                  | rng.integers(0, 16, (S, seg)) << 19).astype(np.int32)
+        lit = np.repeat(rng.integers(8, 177, nblocks), per).astype(np.int32)
+        bank = np.repeat(rng.integers(0, 400, (nblocks, 128)), per, axis=0).astype(np.int32)
+        return {"packed": packed, "lit": lit, "bank": bank, "mm": mm, "cap": cap}
+
+    return make
+
+
+def _opt_port(i):
+    from tpu_zstd_torch.ops import opt
+
+    out = {"steps": opt.opt_steps_plain(_t(i["packed"]), i["mm"], i["cap"], _t(i["lit"]),
+                                        _t(i["bank"]))}
+    if i["mm"] == 4:  # the default literal price and bank
+        out["steps_default"] = opt.opt_steps_plain(_t(i["packed"][:8]), i["mm"], i["cap"])
+    return out
+
+
+def _opt_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import pallas_opt
+
+    out = {"steps": pallas_opt._opt_scan(jnp.asarray(i["packed"]), jnp.asarray(i["lit"]),
+                                         jnp.asarray(i["bank"]), i["mm"], i["cap"])}
+    if i["mm"] == 4:
+        out["steps_default"] = pallas_opt.opt_steps(jnp.asarray(i["packed"][:8]), i["mm"],
+                                                    i["cap"])
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+case("opt_steps_mm3_cap64", "optimal", _opt_inputs(3, 64, 8, 2), _opt_port, _opt_ref)
+case("opt_steps_mm4_cap16", "optimal", _opt_inputs(4, 16, 16, 3), _opt_port, _opt_ref)
+
+OPT_PARSE_N = 16384
+OPT_PARSE_KW = dict(hash_log=13, depth=6, cap=16, min_match=3, lazy=True, seg_log=10,
+                    of_gate=(8, 12), mf_win_log=12, optimal=True, ldm=True)
+
+
+def _opt_parse_inputs(max_seqs):
+    def make():
+        return {**_opt_blocks(OPT_PARSE_N, 4, 19), "max_seqs": max_seqs}
+
+    return make
+
+
+def _opt_parse_digest(seqs, N):
+    nseq = np.asarray(seqs.nseq).astype(np.int64)
+    nlit = np.asarray(seqs.nlit).astype(np.int64)
+    out = {"nseq": nseq, "nlit": nlit,
+           "lits": np.where(np.arange(N) < nlit[:, None], np.asarray(seqs.lits), 0)}
+    for f in ("ll", "ml", "ob", "off", "starts"):
+        a = np.asarray(getattr(seqs, f))
+        out[f] = np.where(np.arange(a.shape[1]) < nseq[:, None], a, 0)
+    return out
+
+
+def _opt_parse_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    seqs = lz77.parse_block(_t(i["blocks"]), _t(i["lengths"]), max_seqs=i["max_seqs"],
+                            **OPT_PARSE_KW)
+    return _opt_parse_digest(seqs, OPT_PARSE_N)
+
+
+def _opt_parse_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    seqs = jax.jit(jax.vmap(lambda b, n: lz77_jax.parse_block(
+        b, n, max_seqs=i["max_seqs"], **OPT_PARSE_KW)))(
+        jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]))
+    return _opt_parse_digest(jax.device_get(seqs), OPT_PARSE_N)
+
+
+# The optimal parse with LDM (4 KB windows of 16 KB blocks), and again with a
+# sequence capacity that some blocks overflow (the min_match-3 poison).
+case("parse_optimal", "optimal", _opt_parse_inputs(OPT_PARSE_N // 4), _opt_parse_port,
+     _opt_parse_ref)
+case("parse_optimal_overflow", "optimal", _opt_parse_inputs(600), _opt_parse_port,
+     _opt_parse_ref)
+
+
+def _opt_level_cfg(config, level):
+    """A level's CompressionConfig at 16 KB blocks with the search trimmed
+    (hash_log 13, depth 6, cap 16) so the JAX package compiles in seconds."""
+    cfg = config.CompressionConfig.from_level(level)
+    return dataclasses.replace(cfg, block_size=16384, hash_log=13, search_depth=6,
+                               compare_cap=16)
+
+
+def _opt_items_port(i):
+    from tpu_zstd_torch.api import config, manager
+
+    frames = manager.compress_items(i["items"], _opt_level_cfg(config, i["level"]), device="cpu")
+    return {f"frame{k}": f for k, f in enumerate(frames)}
+
+
+def _opt_items_ref(i):
+    from tpu_zstd.api import config, manager
+
+    frames = manager.compress_items_tpu(i["items"], _opt_level_cfg(config, i["level"]))
+    return {f"frame{k}": f for k, f in enumerate(frames)}
+
+
+for _level in (7, 12, 19, 22):
+    case(f"items_level{_level}", "optimal", _items_inputs(_level, 0), _opt_items_port,
+         _opt_items_ref)
+
+
+def _whole_frame_port(i):
+    from tpu_zstd_torch.ops import pipeline
+
+    return {"frame": pipeline.compress(i["data"], pipeline.PipelineConfig(**WHOLE_KW),
+                                       device="cpu")}
+
+
+def _whole_frame_ref(i):
+    from tpu_zstd.ops import pipeline
+
+    return {"frame": pipeline.compress(i["data"], pipeline.PipelineConfig(**WHOLE_KW))}
+
+
+# The search and the extraction over the whole block (mf_win_log 0: one
+# compaction sort a block).
+WHOLE_KW = dict(block_size=16384, hash_log=13, depth=4, cap=8, mf_win_log=0)
+case("frame_whole_block", "optimal", lambda: {"data": _mix(77, 2 * 16384)}, _whole_frame_port,
+     _whole_frame_ref)

@@ -17,16 +17,26 @@ before anything is written. Targets (default: slice2 cases):
   `compress_items_tpu` at level 3 with decode_accel=True (the frames that
   bench.py decodes; accel sidecar included), each item's and frame's length
   and sha256, and the first 4 items again with a content checksum;
+- slice4 -> tests/golden/torch_slice4.json, the optimal-parse path at the
+  level-19 pipeline config (`_pipeline_config(CompressionConfig.from_level(19))`:
+  min_match 3, depth 48, cap 64, 64 KB match windows, LDM, the segment DP):
+  the bench batch in chunks of 32 blocks (blocks compress independently), per
+  block its type, content length and sha256 plus the DP's inputs from pass 1
+  (the literal price and the sha256 of the cost-bank row, caught at the
+  `opt_steps` call), and the 16 level-19 `compress_items_tpu` frames of the
+  slice-2 items;
 - cases -> tests/golden/torch_cases.json, the digest of every seeded case in
   tests/torch_cases.py (small shapes: kernels, parse, table choice, state
   chains, Huffman stages, frames at 8-16 KB blocks, levels 1/3/5).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [cases]
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4] [cases]
 
-About 4 minutes for slice1, 7 for slice2 and slice3 and 6 for cases on the
-CPU. Give slice1, slice2 or slice3 a fresh process (or list it first): after the ~40 case
-compiles, XLA:CPU's compile of the full-width batch failed for lack of memory
-mappings in the same process.
+About 4 minutes for slice1, 7 for slice2 and slice3, 13 for slice4 (on 8
+cores) and 10 for cases on the CPU. Give slice1-slice4 a fresh process (or
+list it first): after the ~40 case compiles, XLA:CPU's compile of the
+full-width batch failed for lack of memory mappings in the same process.
+For the same reason `cases` runs each group of cases in a process of its
+own.
 """
 
 from __future__ import annotations
@@ -176,22 +186,124 @@ def slice3() -> None:
     _write("torch_slice3.json", doc)
 
 
-def cases() -> None:
+SLICE4_CHUNK = 32
+
+
+def _spy_opt_steps(record: list):
+    """Wrap the JAX package's `opt_steps` (looked up by `parse_block` at
+    trace time) so each call also hands the host its per-block literal price
+    and cost-bank row, batch axis first; the DP's result is unchanged."""
+    from tpu_zstd.ops import pallas_opt
+
+    orig = pallas_opt.opt_steps
+
+    def rec(lit_bits, bank):
+        lit_bits, bank = np.asarray(lit_bits), np.asarray(bank)
+        record.append((lit_bits.reshape(-1, lit_bits.shape[-1])[:, 0].copy(),
+                       bank.reshape(-1, *bank.shape[-2:])[:, 0].copy()))
+        return np.zeros(lit_bits.shape[:-1], np.int32)
+
+    def spy(packed, mm, cap, lit_bits=None, cost_bank=None):
+        out = orig(packed, mm, cap, lit_bits=lit_bits, cost_bank=cost_bank)
+        tok = jax.pure_callback(rec, jax.ShapeDtypeStruct((), jnp.int32), lit_bits, cost_bank,
+                                vmap_method="expand_dims")
+        return out + (tok != 0).astype(out.dtype)
+
+    pallas_opt.opt_steps = spy
+
+
+def slice4() -> None:
+    from tpu_zstd.api.manager import _pipeline_config
+
+    ccfg = CompressionConfig.from_level(19)
+    cfg = _pipeline_config(ccfg)
+    record: list = []
+    _spy_opt_steps(record)
+    N = cfg.block_size
+    data = make_corpus(BATCH_BLOCKS * N)
+    blocks, lengths = _split_blocks(data, N)
+    parts = []
+    for c in range(0, BATCH_BLOCKS, SLICE4_CHUNK):
+        t0 = time.perf_counter()
+        record.clear()
+        out = jax.device_get(compress_blocks_staged(
+            jnp.asarray(blocks[c : c + SLICE4_CHUNK]), jnp.asarray(lengths[c : c + SLICE4_CHUNK]),
+            cfg))
+        if len(record) != 1 or len(record[0][0]) != SLICE4_CHUNK:
+            raise SystemExit(f"expected one opt_steps call over the chunk, got {len(record)}")
+        parts.append((*out, *record[0]))
+        print(f"  blocks {c}..{c + SLICE4_CHUNK}: {time.perf_counter() - t0:.1f} s", flush=True)
+    contents, clens, btypes, lit, bank = (np.concatenate(x) for x in zip(*parts))
+    _decodes(_frame(lengths, contents, clens, btypes), data, "the level-19 batch frame")
+    out = [{"btype": int(btypes[b]), "clen": int(clens[b]),
+            "sha256": _sha(contents[b, : int(clens[b])].tobytes()),
+            "lit_price": int(lit[b]),
+            "bank_sha256": _sha(bank[b].astype("<i4").tobytes())} for b in range(len(lengths))]
+    doc = {
+        "config": dataclasses.asdict(cfg),
+        "batch": {
+            "corpus": f"make_corpus({BATCH_BLOCKS} * {N})",
+            "chunk": SLICE4_CHUNK,
+            "block_body_ratio": len(data) / sum(b["clen"] for b in out),
+            "blocks": out,
+        },
+    }
+    rng = np.random.default_rng(ITEMS_SEED)
+    sizes = [int(s) for s in rng.integers(64 * 1024, 256 * 1024 + 1, ITEMS_COUNT)]
+    base = make_corpus(sum(sizes))
+    starts = np.cumsum([0] + sizes[:-1])
+    items = [base[s : s + n] for s, n in zip(starts, sizes)]
+    t0 = time.perf_counter()
+    frames = compress_items_tpu(items, ccfg)
+    print(f"  items: {time.perf_counter() - t0:.1f} s", flush=True)
+    for f, d in zip(frames, items):
+        _decodes(f, d, "a level-19 item frame")
+    doc["items"] = {
+        "level": 19,
+        "corpus": "consecutive slices of make_corpus(sum(sizes))",
+        "sizes": sizes,
+        "frames": [{"len": len(f), "sha256": _sha(f)} for f in frames],
+    }
+    _write("torch_slice4.json", doc)
+
+
+def _cases_group(group: str) -> None:
+    """Print the JSON digests of one group's cases as the last stdout line."""
     import torch_cases
 
     out = {}
-    for name in torch_cases.CASES:
-        t0 = time.perf_counter()
-        out[name] = torch_cases.run_ref(name)
-        print(f"  case {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, c in torch_cases.CASES.items():
+        if c.group == group:
+            t0 = time.perf_counter()
+            out[name] = torch_cases.run_ref(name)
+            print(f"  case {name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    print(json.dumps(out))
+
+
+def cases() -> None:
+    """Each group of cases in a process of its own: some 70 case compiles in
+    one process exhaust XLA:CPU's memory mappings."""
+    import subprocess
+
+    import torch_cases
+
+    out = {}
+    for group in dict.fromkeys(c.group for c in torch_cases.CASES.values()):
+        run = subprocess.run([sys.executable, __file__, "--cases-group", group],
+                             stdout=subprocess.PIPE, text=True, check=True)
+        out.update(json.loads(run.stdout.strip().splitlines()[-1]))
     _write("torch_cases.json", {"source": "tools/make_torch_goldens.py from tpu_zstd (JAX, CPU)",
-                                "cases": out})
+                                "cases": {name: out[name] for name in torch_cases.CASES}})
 
 
-TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "cases": cases}
+TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "slice4": slice4,
+           "cases": cases}
 
 
 def main(argv: list[str]) -> None:
+    if argv[:1] == ["--cases-group"]:
+        _cases_group(argv[1])
+        return
     targets = argv or ["slice2", "cases"]
     for t in targets:
         if t not in TARGETS:

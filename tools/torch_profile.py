@@ -1,10 +1,12 @@
 """Where the PyTorch port's batch time goes, on one CUDA GPU.
 
-    python3 tools/torch_profile.py [--config default|slice] [--path compress|decode] [--out DIR]
+    python3 tools/torch_profile.py [--config default|slice|level19] [--path compress|decode]
+                                   [--out DIR]
 
 Runs the bench batch (make_corpus(128 * 131072), 128 x 128 KB blocks) at
-DEFAULT_CONFIG (or SLICE_CONFIG) through `compress_blocks_staged` and
-reports, each beside the card's name and power limit:
+DEFAULT_CONFIG (or SLICE_CONFIG, or the level-19 pipeline config) through
+`compress_blocks_staged` and reports, each beside the card's name and power
+limit:
 
 1. Stage times by CUDA events. The inputs each pipeline function receives in
    one batch are captured, then each function is timed alone on them:
@@ -14,8 +16,10 @@ reports, each beside the card's name and power limit:
    literals (compress_literals_huffman, and within it build_lengths,
    weights_fse_payload, encode_literals_4stream and its deposit tree); at
    SLICE_CONFIG the predefined state chains, the deposit and
-   encode_sequences_predefined; and the block assembly (which holds the
-   Huffman literals at DEFAULT_CONFIG).
+   encode_sequences_predefined; at level 19 also the long-range pass
+   (find_matches_long), the pass-1 pricing (optimal_prices, K3 included)
+   and the segment DP (opt_steps, K10); and the block assembly (which holds
+   the Huffman literals).
 2. A torch.profiler trace of one steady batch, written with a JSON summary
    to DIR/torch_profile_trace.json: the device activities in it
    (kernels, copies, sets), their busy time (union of intervals) against the
@@ -174,7 +178,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "profile_out"), help="trace and summary directory")
-    ap.add_argument("--config", choices=("default", "slice"), default="default")
+    ap.add_argument("--config", choices=("default", "slice", "level19"), default="default")
     ap.add_argument("--path", choices=("compress", "decode"), default="compress")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -182,12 +186,15 @@ def main() -> int:
         return 2
     if opts.path == "decode":
         return _decode_profile(opts)
+    from tpu_zstd_torch.api.config import CompressionConfig
+    from tpu_zstd_torch.api.manager import _pipeline_config
     from tpu_zstd_torch.corpus import make_corpus
     from tpu_zstd_torch.ops import fse, huffman, lz77, pipeline
     from tpu_zstd_torch.ops.pipeline import DEFAULT_CONFIG, SLICE_CONFIG, compress_blocks_staged
 
     card = _card()
-    cfg = DEFAULT_CONFIG if opts.config == "default" else SLICE_CONFIG
+    cfg = {"default": DEFAULT_CONFIG, "slice": SLICE_CONFIG,
+           "level19": _pipeline_config(CompressionConfig.from_level(19))}[opts.config]
     data = make_corpus(B * N)
     blocks = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).reshape(B, N).copy()).cuda()
     lengths = torch.full((B,), N, dtype=torch.int32, device="cuda")
@@ -196,6 +203,10 @@ def main() -> int:
 
     # --- 1. stage times ----------------------------------------------------------------
     sites = [(lz77, "find_matches"), (lz77, "greedy_parse"), (pipeline, "parse_block")]
+    if cfg.ldm:
+        sites += [(lz77, "find_matches_long")]
+    if cfg.optimal:
+        sites += [(lz77, "optimal_prices"), (lz77, "opt_steps")]
     if cfg.custom_fse:
         sites += [(pipeline, "prepare_sequences_auto"), (fse, "state_chain3"),
                   (fse, "deposit_bits"), (pipeline, "encode_prepared")]

@@ -253,6 +253,7 @@ def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
     checksums: list = []
     accel_stride = lit_stride = None
     for f in frames:
+        f = f[_skip_skippable(f):]  # leading skippable frames carry no content
         meta, frame_end = parse_accel_tail(f)
         rec = None
         if meta is not None:

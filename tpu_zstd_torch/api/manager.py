@@ -8,9 +8,10 @@ device to the largest non-Raw block before the copy to the host, and each
 item's frame is assembled in Python (Raw blocks take the caller's bytes).
 With `decode_accel` every frame carries a trailing skippable frame of
 decoder checkpoints (format/accel.py), as the reference writes it. Levels
-1-6 run; LDM, streaming history, dictionary IDs and levels >= 7 (LDM,
-optimal parse) belong to later slices of the port and raise
-NotImplementedError.
+1-22 run, each block compressed on its own (levels 7 and up with the
+long-range pass, 16 and up with the optimal parse); `enable_ldm` windows,
+streaming history and dictionary IDs belong to later slices of the port
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,12 +66,11 @@ def _check_port_supports(cfg: CompressionConfig) -> None:
     later = [name for name, on in (
         ("enable_ldm", cfg.enable_ldm),
         ("dict_id", cfg.dict_id),
-        ("level >= 7 (LDM, optimal parse)", cfg.level >= 7),
     ) if on]
     if later:
         raise NotImplementedError(
-            f"not supported by the port yet: {', '.join(later)} (a later slice: LDM and "
-            "optimal parse, dictionaries)"
+            f"not supported by the port yet: {', '.join(later)} (a later slice: cross-block "
+            "windows, dictionaries)"
         )
 
 

@@ -56,6 +56,17 @@ class AccelMetadata:
         self.blocks = blocks
 
 
+def _u16_deltas(pos: np.ndarray, what: str) -> np.ndarray:
+    """Bit-position deltas between neighbouring checkpoints as u16; raises
+    ValueError where one does not fit (a stride too long for its chunk)."""
+    d = pos[:-1].astype(np.int64) - pos[1:].astype(np.int64)
+    bad = d[(d < 0) | (d > 0xFFFF)]
+    if bad.size:
+        raise ValueError(f"{what} checkpoint delta {int(bad[0])} does not fit in 16 bits "
+                         "(checkpoint stride too long)")
+    return d.astype(np.uint16)
+
+
 def write_accel_frame(
     stride: int,
     blocks: list,
@@ -84,7 +95,7 @@ def write_accel_frame(
         if nck:
             bits = np.asarray(bits, np.uint32)
             parts.append(states.astype(np.uint32).tobytes())
-            deltas = (bits[:-1] - bits[1:]).astype(np.uint16)
+            deltas = _u16_deltas(bits, "sequence")
             parts.append(struct.pack("<I", int(bits[0])) + deltas.tobytes())
             if wide:
                 parts.append(np.ascontiguousarray(reps).tobytes())
@@ -104,7 +115,7 @@ def write_accel_frame(
                     if row[i] == 0:
                         row[i] = row[i - 1]
                 parts.append(struct.pack("<I", int(row[0])))
-                parts.append((row[:-1] - row[1:]).astype(np.uint16).tobytes())
+                parts.append(_u16_deltas(row, "literal").tobytes())
     body = b"".join(parts)
     total = 8 + len(body) + 4
     return struct.pack("<II", SKIPPABLE_MAGIC, len(body) + 4) + body + struct.pack("<I", total)

@@ -1,34 +1,45 @@
-"""Batched LZ77 match finding and greedy / lazy parse.
+"""Batched LZ77 match finding and greedy / lazy / optimal parse.
 
-Counterpart of tpu_zstd/ops/lz77_jax.py on the path the port supports: the
-windowed match finder (`mf_win_log` > 0, one packed sort key), the
-non-optimal parse with lazy defer and the offset-cost gate, windowed
-extraction, the same-offset merge and repcodes. Every array carries a leading
-batch dimension (one row per block) where the JAX package vmaps per block.
+Counterpart of tpu_zstd/ops/lz77_jax.py without dictionary windows and
+sampling: the match finder over 2^mf_win_log windows or the whole block
+(min_match 3 or 4, the near-offset second band), the sampled long-range
+pass (LDM), the greedy parse with lazy defer and the offset-cost gate, the
+optimal parse (a pass-1 greedy walk prices every decision, then the segment
+DP chooses), extraction, the same-offset merge, repcodes and the min_match-3
+overflow poison. Every array carries a leading batch dimension (one row per
+block) where the JAX package vmaps per block.
 
 The design is the JAX package's: previous-occurrence search as a sort of
 (hash, pos) keys that carries the suffix words, depth-D candidates as the D
-preceding sorted rows, a restore sort back to position order, and compaction
-by sort. Sort keys are unique, so `torch.sort` on an int64 key plus a gather
-of each payload gives the same order as the JAX package's unstable sorts.
-Three Pallas TPU kernels on this path are CUDA kernels here: the greedy walk
-(K3, ops/greedy.py), the segment concatenation (K2, ops/concat.py) and the
-repcode walk (K4, ops/rep.py).
+preceding sorted rows, back to position order, and compaction by sort. Sort
+keys are unique, so `torch.sort` on one int64 key plus a gather of each
+payload gives the same order as the JAX package's unstable one- or two-key
+sorts; the restore to position order is a scatter by the sorted positions.
+Four Pallas TPU kernels on this path are CUDA kernels here: the greedy walk
+(K3, ops/greedy.py), the segment concatenation (K2, ops/concat.py), the
+repcode walk (K4, ops/rep.py) and the segment DP (K10, ops/opt.py).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..constants import ML_BASELINE, ML_BITS
+from .bitpack import dynroll_left
 from .concat import concat_varlen
-from .fse import highbit32
+from .fse import highbit32, ml_code
 from .greedy import greedy_segments
+from .opt import SCALE, opt_steps
 from .rep import rep_codes
 
 HASH_PRIME = 2654435761
+LDM_PRIME = 0x85EBCA77
+LDM_MIN = 16  # long-range matches must cover the 16-byte verification span
 SEG_LOG = 10
+LL_AMORT = 3 * SCALE  # one LL symbol per match, ~3 bits on mixed data
 M32 = 0xFFFFFFFF
 
 
@@ -53,19 +64,30 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & M32
 
 
-def _hash_words(block: torch.Tensor, hash_log: int):
-    """4-byte little-endian words (u32 in int64) and Fibonacci hashes of the
-    whole word (min_match 4) per position, for blocks (B, N); words wrap
-    around each block's end."""
+def _words(block: torch.Tensor) -> torch.Tensor:
+    """4-byte little-endian words (u32 in int64) per position of blocks
+    (B, N); words wrap around each block's end."""
     b = block.to(torch.int64)
-    w = (
+    return (
         b
         | (torch.roll(b, -1, -1) << 8)
         | (torch.roll(b, -2, -1) << 16)
         | (torch.roll(b, -3, -1) << 24)
     )
-    h = _mul32(w, HASH_PRIME) >> (32 - hash_log)
-    return w, h
+
+
+def _hash_words(block: torch.Tensor, hash_log: int, min_match: int = 4):
+    """Words and Fibonacci hashes per position; min_match 3 hashes only the
+    low 3 bytes, so chain candidates agree on 3 bytes."""
+    w = _words(block)
+    hw = w & 0xFFFFFF if min_match == 3 else w
+    return w, _mul32(hw, HASH_PRIME) >> (32 - hash_log)
+
+
+def _as_i32(w: torch.Tensor) -> torch.Tensor:
+    """u32 values held in int64 -> the same 32 bits as int32 (XOR, == 0 and
+    the byte masks of `_word_inc` read the bits alone)."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def _word_inc(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +99,29 @@ def _word_inc(x: torch.Tensor) -> torch.Tensor:
         + ((x & 0xFFFF) == 0).to(torch.int64)
         + ((x & 0xFFFFFF) == 0).to(torch.int64),
     )
+
+
+def _scatter_back(sp: torch.Tensor, *vals: torch.Tensor):
+    """Values in sorted-row order back to position order: sp holds each
+    row's position (a permutation along the last axis)."""
+    return tuple(torch.empty_like(v).scatter_(-1, sp, v) for v in vals)
+
+
+def _chain_lengths(sk, sp, sw, d: int, lpos):
+    """Match length of every sorted row against the row d above it (0 where
+    the hashes differ), and the position of that row."""
+    def _prev(x, fill):
+        return torch.where(lpos < d, fill, torch.roll(x, d, -1))
+
+    same = _prev(sk, -1) == sk
+    pp = _prev(sp, 0)
+    ml = torch.zeros(sk.shape, dtype=torch.int64, device=sk.device)
+    alive = same
+    for x_k in sw:
+        x = x_k ^ _prev(x_k, 0)
+        ml = ml + torch.where(alive, _word_inc(x), 0)
+        alive = alive & (x == 0)
+    return ml, pp
 
 
 def _sort_unique(key: torch.Tensor, *pays: torch.Tensor):
@@ -102,68 +147,116 @@ def find_matches(
     cap: int,
     mf_win_log: int,
     min_match: int = 4,
+    two_band: bool = False,
 ):
-    """Best (capped) match per position within 2^mf_win_log windows.
+    """Best (capped) match per position: returns (best_ml, best_off), each
+    (B, N) int64 in position order, and with two_band also (ml2, off2), the
+    best candidate at an offset below 512.
 
-    block (B, N) uint8, n (B,) payload lengths. Returns (best_ml, best_off),
-    each (B, N) int64 in position order. Ties prefer the smallest offset.
-    Candidate search is window-local; match content extends past window
-    ends (words are formed on the whole block).
+    block (B, N) uint8, n (B,) payload lengths. Ties prefer the smallest
+    offset. With 0 < mf_win_log < log2(N) and N a multiple of the window,
+    the candidate search is local to 2^mf_win_log windows, else it spans the
+    whole block; match content extends past window ends (words are formed
+    on the whole block).
     """
     B, N = block.shape
-    if not _is_windowed(N, mf_win_log) or hash_log + 1 + mf_win_log > 32:
-        raise NotImplementedError("only the windowed, packed-key match finder is ported")
     dev = block.device
     nwords = cap // 4
     pos = torch.arange(N, device=dev)
     n = n.to(torch.int64)
-    w, h = _hash_words(block, hash_log)
+    w, h = _hash_words(block, hash_log, min_match)
     live = pos < n[:, None] - (min_match - 1)
-    W = 1 << mf_win_log
+    if _is_windowed(N, mf_win_log):
+        W, plog = 1 << mf_win_log, mf_win_log
+    else:
+        W, plog = N, max(1, (N - 1).bit_length())
     nwin = N // W
     shape = (B, nwin, W)
-    words = [torch.roll(w, -4 * k, -1).reshape(shape) for k in range(nwords)]
-    h = h.reshape(shape)
-    live = live.reshape(shape)
+    words = [_as_i32(torch.roll(w, -4 * k, -1)).reshape(shape) for k in range(nwords)]
+    del w
     lpos = torch.arange(W, device=dev)
 
-    # Sort positions by (hash, pos) in one packed key; dead rows get the
+    # Sort positions by (hash, pos) as one int64 key, which orders as the
+    # JAX package's packed u32 key or its two-key sort; dead rows get the
     # sentinel hash 2^hash_log and keep their position order.
-    key = (torch.where(live, h, 1 << hash_log) << mf_win_log) | lpos
+    key = (torch.where(live.reshape(shape), h.reshape(shape), 1 << hash_log) << plog) | lpos
     skey, *sw = _sort_unique(key, *words)
-    sk = skey >> mf_win_log
-    sp = skey & (W - 1)
-
-    def _prev(x, d, fill):
-        return torch.where(lpos < d, fill, torch.roll(x, d, -1))
+    del key, words
+    sk = skey >> plog
+    sp = skey & ((1 << plog) - 1)
 
     best_ml = torch.zeros(shape, dtype=torch.int64, device=dev)
     best_off = torch.zeros_like(best_ml)
+    if two_band:
+        best_ml2 = torch.zeros_like(best_ml)
+        best_off2 = torch.zeros_like(best_ml)
     for d in range(1, depth + 1):
-        same = _prev(sk, d, -1) == sk
-        pp = _prev(sp, d, 0)
-        ml = torch.zeros_like(best_ml)
-        alive = same
-        for k in range(nwords):
-            x = sw[k] ^ _prev(sw[k], d, 0)
-            ml = ml + torch.where(alive, _word_inc(x), 0)
-            alive = alive & (x == 0)
+        ml, pp = _chain_lengths(sk, sp, sw, d, lpos)
+        off = sp - pp
         better = ml > best_ml
         best_ml = torch.where(better, ml, best_ml)
-        best_off = torch.where(better, sp - pp, best_off)
+        best_off = torch.where(better, off, best_off)
+        if two_band:
+            better2 = (off < 512) & (ml > best_ml2)
+            best_ml2 = torch.where(better2, ml, best_ml2)
+            best_off2 = torch.where(better2, off, best_off2)
+        del ml, pp, off, better
 
     # Clamp to block end (also cancels false matches into rolled-around words).
-    gsp = sp + (torch.arange(nwin, device=dev) << mf_win_log)[:, None]
-    best_ml = torch.minimum(best_ml, torch.clamp(n[:, None, None] - gsp, min=0))
+    room = torch.clamp(n[:, None, None] - (sp + (torch.arange(nwin, device=dev) * W)[:, None]),
+                       min=0)
+    best_ml = torch.minimum(best_ml, room)
+    out = [best_ml, best_off]
+    if two_band:
+        out += [torch.minimum(best_ml2, room), best_off2]
+    return tuple(v.reshape(B, N) for v in _scatter_back(sp, *out))
 
-    # Back to position order: sp | ml | off pack into one unique int64 key
-    # (the JAX package sorts a payload beside sp where this passes 31 bits;
-    # the order is the same, sp being unique within a window).
-    mlb = max(4, cap.bit_length())
-    low_bits = mf_win_log + mlb
-    key2 = (sp << low_bits) | (best_ml << mf_win_log) | best_off
-    opk = torch.sort(key2, dim=-1).values.reshape(B, N)
-    return (opk >> mf_win_log) & ((1 << mlb) - 1), opk & (W - 1)
+
+def find_matches_long(
+    block: torch.Tensor,
+    n: torch.Tensor,
+    *,
+    hash_log2: int = 16,
+    sample_log: int = 2,
+    depth: int = 2,
+    nwords: int = 4,
+):
+    """Sampled whole-block long-range match candidates (LDM): every
+    2^sample_log-th position, hashed over 8 bytes, verified and measured on
+    4 * nwords carried bytes; only matches of at least LDM_MIN count.
+    Returns (ml, off), each (B, N) int64, zero at unsampled positions."""
+    B, N = block.shape
+    dev = block.device
+    SS = 1 << sample_log
+    P = N // SS
+    n = n.to(torch.int64)
+    w = _words(block)
+    plog = max(1, (P - 1).bit_length())
+    ws = [torch.roll(w, -4 * k, -1)[:, ::SS] for k in range(nwords)]
+    h2 = (_mul32(ws[0], HASH_PRIME) ^ _mul32(ws[1], LDM_PRIME)) >> (32 - hash_log2)
+    spos = torch.arange(N, device=dev)[::SS]
+    live = spos < n[:, None] - (LDM_MIN + 3)
+    idx = torch.arange(P, device=dev)
+    key = (torch.where(live, h2, 1 << hash_log2) << plog) | idx
+    skey, *sw = _sort_unique(key, *(_as_i32(x) for x in ws))
+    sk = skey >> plog
+    sp = skey & ((1 << plog) - 1)
+
+    best_ml = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    best_di = torch.zeros_like(best_ml)
+    for d in range(1, depth + 1):
+        ml, pp = _chain_lengths(sk, sp, sw, d, idx)
+        better = (ml >= LDM_MIN) & (ml > best_ml)
+        best_ml = torch.where(better, ml, best_ml)
+        best_di = torch.where(better, sp - pp, best_di)
+
+    s_ml, s_di = _scatter_back(sp, best_ml, best_di)
+    s_ml = torch.minimum(s_ml, torch.clamp(n[:, None] - spos, min=0))
+    full_ml = torch.zeros((B, P, SS), dtype=torch.int64, device=dev)
+    full_off = torch.zeros_like(full_ml)
+    full_ml[:, :, 0] = s_ml
+    full_off[:, :, 0] = s_di * SS
+    return full_ml.reshape(B, N), full_off.reshape(B, N)
 
 
 def greedy_parse(step: torch.Tensor, matched: torch.Tensor, defer, seg: int):
@@ -175,6 +268,98 @@ def greedy_parse(step: torch.Tensor, matched: torch.Tensor, defer, seg: int):
     packed = step.to(torch.int64) | (matched.to(torch.int64) << 11) | (d.to(torch.int64) << 12)
     out = greedy_segments(packed.to(torch.int32).reshape(B * (N // seg), seg)).reshape(B, N)
     return (out & 1) == 1, (out & 2) == 2
+
+
+def _bins(x: torch.Tensor, sel: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Per-row histogram (B, nbins) int64 of x's values in [0, nbins) where
+    sel holds (an exact integer scatter-add)."""
+    idx = torch.where(sel & (x >= 0) & (x < nbins), x, nbins).to(torch.int64)
+    h = torch.zeros((x.shape[0], nbins + 1), dtype=torch.int64, device=x.device)
+    return h.scatter_add_(1, idx, torch.ones_like(idx))[:, :nbins]
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """float32 log2 as the JAX package computes it: log(x) / log(2)."""
+    return torch.log(x) / torch.log(torch.tensor(2.0, dtype=torch.float32, device=x.device))
+
+
+def _sym_bits(hist: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """Code bits per symbol in SCALE units from a histogram (B, K) and its
+    total (B,); an unseen symbol costs log2(total) + 2 bits."""
+    tot = total.to(torch.float32)[:, None]
+    bits = -_log2(torch.clamp(hist.to(torch.float32) / tot, min=1e-9))
+    unseen = _log2(tot) + 2.0
+    return torch.round(torch.where(hist > 0, bits, unseen) * SCALE).to(torch.int64)
+
+
+def optimal_prices(block, n, ml_t, ofc, matched, *, min_match: int, cap: int, seg: int):
+    """Pass 1 of the optimal parse: a greedy walk (K3) over the candidates,
+    then the block's measured symbol economics in SCALE units: OF-code bits
+    (B, 32), the literal price (B,) from the residual literals' entropy and
+    the 128-lane cost bank (B, 128): OF-symbol bits plus the amortised LL
+    symbol at lanes [0, 32), ML-symbol bits plus exact ML extra bits for
+    lengths min_match..min(cap, 127) from lane 32. ofc: each candidate's
+    offset code."""
+    B, N = block.shape
+    in_block = torch.arange(N, device=block.device) < n[:, None]
+    is_seq1, is_lit1 = greedy_parse(torch.where(matched, ml_t, 1), matched, None, seg)
+    ch = is_seq1 & in_block
+    lit1 = is_lit1 & in_block
+    nch = torch.clamp(ch.sum(-1), min=1)
+    of_bits = _sym_bits(_bins(ofc, ch, 32), nch)
+    ml_bits_h = _sym_bits(_bins(ml_code(torch.clamp(ml_t, min=3)), ch, 53), nch)
+    # Literal price: entropy of the pass-1 residual literals.
+    nlit1 = torch.clamp(lit1.sum(-1), min=1).to(torch.float32)
+    lith = _bins(block.to(torch.int64), lit1, 256)
+    pl_ = lith.to(torch.float32) / nlit1[:, None]
+    h_lit = -torch.where(lith > 0, pl_ * _log2(torch.clamp(pl_, min=1e-9)), 0.0).sum(-1)
+    lit_price = torch.clamp(torch.round(h_lit * SCALE).to(torch.int64), SCALE // 2, 11 * SCALE)
+
+    dp_cap = min(cap, 127)
+    mlcode_l = np.searchsorted(
+        np.asarray(ML_BASELINE), np.arange(min_match, dp_cap + 1), side="right") - 1
+    mlx_l = torch.as_tensor(np.asarray(ML_BITS)[mlcode_l].astype(np.int64) * SCALE,
+                            device=block.device)
+    bank = torch.zeros((B, 128), dtype=torch.int64, device=block.device)
+    bank[:, :32] = of_bits + LL_AMORT
+    bank[:, 32 : 32 + dp_cap + 1 - min_match] = (
+        ml_bits_h[:, torch.as_tensor(mlcode_l, device=block.device)] + mlx_l)
+    return of_bits, lit_price, bank
+
+
+def _optimal_steps(block, n, ml_t, boff, matched, bml2, boff2, room, *,
+                   min_match: int, cap: int, seg: int):
+    """The optimal branch of the JAX parse: price (pass 1), the segment DP
+    over both candidate bands (K10), then which band each chosen match
+    takes. Returns (matched, ml_t, boff, step) for the final walk."""
+    B, N = block.shape
+    in_block = torch.arange(N, device=block.device) < n[:, None]
+    ofc = highbit32(torch.clamp(boff + 3, min=1))
+    of_bits, lit_price, bank = optimal_prices(
+        block, n, ml_t, ofc, matched, min_match=min_match, cap=cap, seg=seg)
+    mlv = torch.where(matched, torch.clamp(ml_t, max=127), 0)
+    ml2_t = torch.minimum(bml2, room)
+    ok2 = (ml2_t >= min_match) & (boff2 > 0) & in_block
+    mlv2 = torch.where(ok2, torch.clamp(ml2_t, max=127), 0)
+    ofc2 = highbit32(torch.clamp(boff2 + 3, min=1))
+    packed = (mlv | (torch.clamp(ofc, max=31) << 7) | (mlv2 << 12)
+              | (torch.clamp(ofc2, max=15) << 19))
+    nseg_b = N // seg
+    dp = opt_steps(
+        packed.to(torch.int32).reshape(B * nseg_b, seg), min_match, min(cap, 127),
+        lit_bits=lit_price.to(torch.int32).repeat_interleave(nseg_b),
+        cost_bank=bank.to(torch.int32).repeat_interleave(nseg_b, 0),
+    ).reshape(B, N).to(torch.int64)
+    matched = dp > 1
+    # The band the DP priced for the chosen length: the near candidate wins
+    # when it reaches that length and is not costlier.
+    c1, c2 = torch.clamp(ofc, max=31), torch.clamp(ofc2, max=31)
+    mc1 = of_bits.gather(1, c1) + c1 * SCALE
+    mc2 = of_bits.gather(1, c2) + c2 * SCALE
+    use2 = matched & (mlv2 >= dp) & ((mlv < dp) | (mc2 <= mc1))
+    boff = torch.where(use2, boff2, boff)
+    ml_t = torch.where(matched, dp, ml_t)
+    return matched, ml_t, boff, torch.where(matched, dp, 1)
 
 
 def parse_block(
@@ -190,21 +375,31 @@ def parse_block(
     seg_log: int = SEG_LOG,
     of_gate: tuple[int, int] = (99, 99),
     mf_win_log: int,
+    optimal: bool = False,
+    ldm: bool = False,
 ) -> BlockSequences:
-    """Greedy-parse blocks (B, N) uint8 with payload lengths n (B,) into
-    sequences (the non-optimal, no-dictionary branch of the JAX parse)."""
-    if min_match != 4:
-        raise NotImplementedError("only min_match 4 is ported")
+    """Parse blocks (B, N) uint8 with payload lengths n (B,) into sequences
+    (the no-dictionary branches of the JAX parse)."""
+    if min_match not in (3, 4):
+        raise NotImplementedError("only min_match 3 and 4 are ported")
     B, N = block.shape
     dev = block.device
     n = n.to(torch.int64)
     pos = torch.arange(N, device=dev)
     in_block = pos < n[:, None]
 
-    bml, boff = find_matches(
+    fm = find_matches(
         block, n, hash_log=hash_log, depth=depth, cap=cap, mf_win_log=mf_win_log,
-        min_match=min_match,
+        min_match=min_match, two_band=optimal,
     )
+    bml, boff = fm[0], fm[1]
+    if ldm and 0 < mf_win_log < max(1, (N - 1).bit_length()):
+        # Long-range supplement, taken only where strictly longer than the
+        # local match (long offsets cost extra bits).
+        lml, loff = find_matches_long(block, n)
+        take_l = lml > bml
+        bml = torch.where(take_l, lml, bml)
+        boff = torch.where(take_l, loff, boff)
 
     # Truncate matches at segment boundaries so segments parse independently;
     # the merge pass below re-joins same-offset continuations.
@@ -212,26 +407,33 @@ def parse_block(
     room = seg - (pos & (seg - 1))
     ml_t = torch.minimum(bml, room)
     matched = (ml_t >= min_match) & (boff > 0) & in_block
-    if tuple(of_gate) != (99, 99):
-        # Offset-cost gate: short matches at large offsets stay literals;
-        # same-offset continuity is exempt.
-        g4, g5 = of_gate
-        ofc = highbit32(torch.clamp(boff, min=1))
-        gate = (
-            (ml_t >= 6)
-            | ((ml_t == 4) & (ofc <= g4))
-            | ((ml_t == 5) & (ofc <= g5))
-            | (boff == torch.roll(boff, 1, -1))
-        )
-        matched = matched & gate
-    step = torch.where(matched, ml_t, 1)
     defer = None
-    if lazy:
-        next_ml = torch.roll(ml_t, -1, -1)
-        next_ml[:, -1] = 0
-        next_matched = torch.roll(matched, -1, -1)
-        next_matched[:, -1] = False
-        defer = matched & next_matched & (next_ml > ml_t + 1)
+    if optimal:
+        # Segment DP over both candidate bands; lazy and the offset-cost
+        # gate do not apply.
+        matched, ml_t, boff, step = _optimal_steps(
+            block, n, ml_t, boff, matched, fm[2], fm[3], room,
+            min_match=min_match, cap=cap, seg=seg)
+    else:
+        if tuple(of_gate) != (99, 99):
+            # Offset-cost gate: short matches at large offsets stay literals;
+            # same-offset continuity is exempt.
+            g4, g5 = of_gate
+            ofc = highbit32(torch.clamp(boff, min=1))
+            gate = (
+                (ml_t >= 6)
+                | ((ml_t == 4) & (ofc <= g4))
+                | ((ml_t == 5) & (ofc <= g5))
+                | (boff == torch.roll(boff, 1, -1))
+            )
+            matched = matched & gate
+        step = torch.where(matched, ml_t, 1)
+        if lazy:
+            next_ml = torch.roll(ml_t, -1, -1)
+            next_ml[:, -1] = 0
+            next_matched = torch.roll(matched, -1, -1)
+            next_matched[:, -1] = False
+            defer = matched & next_matched & (next_ml > ml_t + 1)
 
     is_seq, is_lit = greedy_parse(step, matched, defer, seg)
     is_seq = is_seq & in_block
@@ -239,29 +441,36 @@ def parse_block(
     nseq = is_seq.sum(-1)
     nlit = is_lit.sum(-1)
 
-    # Windowed extraction: per 2^ew_log window, one compaction sort puts
-    # sequence rows first, then literal bytes; K2 joins the windows.
     pk = torch.where(is_seq, (ml_t << 21) | boff, block.to(torch.int64))
     ew_log = min(mf_win_log, 11)
-    if not ((1 << ew_log) < N and N % (1 << ew_log) == 0):
-        raise NotImplementedError("only windowed extraction is ported")
-    W = 1 << ew_log
-    nwin = N // W
-    # Sequence starts per window are >= min_match apart: at most SC of them.
-    SC = min(_ceil_div(_ceil_div(W, min_match), 128) * 128, W)
-    lpos = torch.arange(W, device=dev)
-    isq = is_seq.reshape(B, nwin, W)
-    isl = is_lit.reshape(B, nwin, W)
-    selk = torch.where(isq, lpos, torch.where(isl, W + lpos, 2 * W + lpos))
-    e_key_w, e_pk_w = _sort_unique(selk, pk.reshape(B, nwin, W))
-    nseq_w = isq.sum(-1)
-    nlit_w = isl.sum(-1)
-    startsw = e_key_w[..., :SC] + (torch.arange(nwin, device=dev) << ew_log)[:, None]
-    pkw = e_pk_w[..., :SC]
-    zero_w = torch.zeros_like(nseq_w)
-    lits = concat_varlen((e_pk_w & 0xFF).to(torch.int32), nseq_w, nlit_w, N).to(torch.uint8)
-    starts = concat_varlen(startsw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
-    pk_acc = concat_varlen(pkw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
+    if 0 < mf_win_log and (1 << ew_log) < N and N % (1 << ew_log) == 0:
+        # Windowed extraction: per 2^ew_log window, one compaction sort puts
+        # sequence rows first, then literal bytes; K2 joins the windows.
+        W = 1 << ew_log
+        nwin = N // W
+        # Sequence starts per window are >= min_match apart: at most SC of them.
+        SC = min(_ceil_div(_ceil_div(W, min_match), 128) * 128, W)
+        lpos = torch.arange(W, device=dev)
+        isq = is_seq.reshape(B, nwin, W)
+        isl = is_lit.reshape(B, nwin, W)
+        selk = torch.where(isq, lpos, torch.where(isl, W + lpos, 2 * W + lpos))
+        e_key_w, e_pk_w = _sort_unique(selk, pk.reshape(B, nwin, W))
+        nseq_w = isq.sum(-1)
+        nlit_w = isl.sum(-1)
+        startsw = e_key_w[..., :SC] + (torch.arange(nwin, device=dev) << ew_log)[:, None]
+        pkw = e_pk_w[..., :SC]
+        zero_w = torch.zeros_like(nseq_w)
+        lits = concat_varlen((e_pk_w & 0xFF).to(torch.int32), nseq_w, nlit_w, N).to(torch.uint8)
+        starts = concat_varlen(startsw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
+        pk_acc = concat_varlen(pkw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
+    else:
+        # One compaction sort over the block: the key is the position, so
+        # sequence rows sort to the front with their starts as keys.
+        sel_key = torch.where(is_seq, pos, torch.where(is_lit, N + pos, 2 * N + pos))
+        e_key, e_pk = _sort_unique(sel_key, pk)
+        lits = dynroll_left((e_pk & 0xFF).to(torch.uint8), nseq)
+        starts = e_key[:, :max_seqs]
+        pk_acc = e_pk[:, :max_seqs]
     mls = pk_acc >> 21
     offs = pk_acc & ((1 << 21) - 1)
 
@@ -301,6 +510,17 @@ def parse_block(
     # Offset-base values with full repcode use (kernel K4).
     packed_rep = torch.where(valid2, off2 | ((ll2 > 0).to(torch.int64) << 21) | (1 << 22), 0)
     ob = rep_codes(packed_rep.to(torch.int32))
+
+    if min_match < 4:
+        # Overflow poison: past max_seqs the extraction truncates, so a
+        # block that parsed into more sequences becomes all literals (the
+        # assembler then emits it Raw).
+        over = nseq > max_seqs
+        nseq2 = torch.where(over, 0, nseq2)
+        lits = torch.where(over[:, None], block.to(torch.uint8), lits)
+        nlit = torch.where(over, torch.clamp(n, min=0), nlit)
+        ll2, ml2, ob, off2, starts2 = (torch.where(over[:, None], 0, a).to(a.dtype)
+                                       for a in (ll2, ml2, ob, off2, starts2))
 
     i32 = torch.int32
     return BlockSequences(

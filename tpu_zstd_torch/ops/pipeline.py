@@ -58,7 +58,15 @@ class PipelineConfig:
     dec_min_ml: int = 0
 
     @property
+    def eff_mf_win_log(self) -> int:
+        if self.dict_cap and not (self.ldm_window and self.ldm):
+            return 0  # a dictionary prefix must stay visible to every position
+        return self.mf_win_log
+
+    @property
     def max_seqs(self) -> int:
+        # block_size / 4 at min_match 3 too: a block that parses into more
+        # sequences becomes Raw (the overflow poison of the parse).
         return self.block_size // 4
 
     def seq_cap_for(self, msb: int) -> int:
@@ -75,9 +83,7 @@ SLICE_CONFIG = PipelineConfig(huffman_literals=False, custom_fse=False)
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for a setting the port does not run."""
     off = {
-        "optimal": cfg.optimal,
         "dict_cap": cfg.dict_cap,
-        "ldm": cfg.ldm,
         "ldm_window": cfg.ldm_window,
         "sample_log": cfg.sample_log,
         "dec_min_ml": cfg.dec_min_ml,
@@ -85,19 +91,15 @@ def check_supported(cfg: PipelineConfig) -> None:
     on = [k for k, v in off.items() if v]
     if on:
         raise NotImplementedError(f"not supported by the port: {', '.join(on)}")
-    N, mw = cfg.block_size, cfg.mf_win_log
-    if cfg.min_match != 4:
-        raise NotImplementedError("only min_match 4 is supported")
-    if not (0 < mw < max(1, (N - 1).bit_length()) and N % (1 << mw) == 0):
-        raise NotImplementedError("mf_win_log must give windows smaller than the block")
-    if cfg.hash_log + 1 + mw > 32:
-        raise NotImplementedError("hash_log / mf_win_log exceed the packed sort key")
-    if not (1 << min(mw, 11)) < N:
-        raise NotImplementedError("windowed extraction needs blocks above its window")
+    N = cfg.block_size
+    if cfg.min_match not in (3, 4):
+        raise NotImplementedError("only min_match 3 and 4 are supported")
     if cfg.seg_log > 10 or N % (1 << cfg.seg_log):
         raise NotImplementedError("seg_log must be <= 10 and divide the block")
     if cfg.cap >= 1 << 10:
         raise NotImplementedError("cap must be < 1024")
+    if cfg.optimal and min(cfg.cap, 127) - cfg.min_match >= 96:
+        raise NotImplementedError("the optimal parse's cost bank holds 96 match lengths")
     if cfg.ckpt_every and not cfg.custom_fse:
         raise NotImplementedError("decode checkpoints (ckpt_every) need custom_fse")
 
@@ -140,7 +142,9 @@ def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig)
         lazy=cfg.lazy,
         seg_log=cfg.seg_log,
         of_gate=cfg.of_gate,
-        mf_win_log=cfg.mf_win_log,
+        mf_win_log=cfg.eff_mf_win_log,
+        optimal=cfg.optimal,
+        ldm=cfg.ldm,
     )
 
 
