@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
 
 1. Card and build: the card's name and power limit, the nvcc build of the
    kernels in tpu_zstd_torch/csrc (seconds, registers, shared memory).
-2. Each kernel (K1-K10) against its plain PyTorch version on the card, at the
+2. Each kernel (K1-K13) against its plain PyTorch version on the card, at the
    main paths' shapes (B = 128) on seeded inputs: exact equality (K5 on its
    live range: 1 <= t < nseq and the flush state; the decode kernels K6, K7
    and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
    or read from 4-stream rows, without and with a 4 KB window; K10 seeded
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
    rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
-   per 16 rows).
+   per 16 rows); K12 on unique keys spanning negative values with 0-3
+   payloads; K13 on low-entropy windows at 2 x 1024 and at the three level
+   shapes (2048 x 8192); K11 on the reference test's fields, its sparse case
+   and fields running past the padded width.
 3. The first slice's path at full width: the 16 MiB bench batch
    (128 x 128 KB) through `compress_blocks_staged_many` at SLICE_CONFIG, the
    launch counts set to 0 just before and read just after; every block's
@@ -49,13 +52,26 @@ Phases, in order; any failure exits non-zero:
    frames of `BatchManager(level=19).compress_batch` over the 16 items
    against the same file; each kernel (K1-K5, K10) against its plain version
    on the inputs it received in that run; K10 launched at least once.
+4d. The fused match route (K13) at the pipeline configs of levels 1, 3 and 5:
+   `find_matches(..., use_pallas_match=True)` on the inputs `parse_block`
+   hands `find_matches` for the bench batch, the counts set to 0 just before
+   and read just after (one K13 launch a call, nothing else), equal to the
+   plain route at every live position and 0 at dead ones; K13 against its
+   plain version and K12 against its plain version on the inputs K13
+   received (the window keys and their suffix words). Then K11 on the
+   DEFAULT_CONFIG batch's sequence deposits (the calls that take the deposit
+   tree; offsets the exclusive cumsum, M padded to 128 with zero-length
+   fields at the last offset): its first num_words words equal the tree's,
+   and it equals its plain version. The main path keeps the tree.
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
    of 2), peak device memory, the parse and encode stages; at level 19 the
    pipelined batch (best of 2) and its peak device memory; the decode as
    bench.py times it (3 `execute()` calls with their lengths fetched, best of
    2, GB/s = 16 MiB over that time) with its peak device memory; and per
    kernel its time by CUDA events at every captured shape, its bound and its
-   plain version's time.
+   plain version's time (K12 also `torch.sort` + `torch.gather`, its
+   library call; K13 beside the plain route's `find_matches`, K11 beside the
+   deposit tree, both in phase 4d).
 
 Stock libzstd (`zstandard`) decodes the frames where it is installed; where
 it is not, the run says so once and golden identity stands in for it.
@@ -85,6 +101,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K10 bound: int32 operations per (position, length) tried and per position.
 OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 8, 12
+# K12/K13 bound: int32 operations per compare-exchange of the bitonic network
+# (partner index, compare, direction, select); K13 also per (position,
+# predecessor) pair its data compares and per position.
+SORT_OPS_PER_CE = 4
+MATCH_OPS_PER_PAIR, MATCH_OPS_PER_POSITION = 6, 4
 B, N = 128, 131072
 REPS = 5
 # A level-19 batch takes ~1 s: its pipelined time is taken over fewer batches.
@@ -139,8 +160,8 @@ def main() -> int:
     from tpu_zstd_torch.format.frame import write_frame_header
     from tpu_zstd_torch.format.xxhash import content_checksum
     from tpu_zstd_torch.ops import (
-        _kernels, bitpack, chain, concat, decode, decode_lanes, fse, greedy, huffman, lz77, opt,
-        rep, roll,
+        _kernels, bitpack, chain, concat, decode, decode_lanes, deposit, fse, greedy, huffman,
+        lz77, match, opt, rep, roll, sort,
     )
     from tpu_zstd_torch.ops import exec as execmod
     from tpu_zstd_torch.ops.pipeline import (
@@ -203,6 +224,13 @@ def main() -> int:
                  "tpu_zstd/ops/pallas_exec.py:416 execute_sequences_pallas"),
         "opt": (opt.opt_steps, opt.opt_steps_plain, "tpu_zstd_torch/csrc/opt.cu",
                 "tpu_zstd/ops/pallas_opt.py:232 opt_steps"),
+        "deposit": (deposit.deposit_bits_pallas, deposit.deposit_bits_pallas_plain,
+                    "tpu_zstd_torch/csrc/deposit.cu",
+                    "tpu_zstd/ops/pallas_deposit.py:101 deposit_bits_pallas"),
+        "sort": (sort.sort_rows, sort.sort_rows_plain, "tpu_zstd_torch/csrc/sort.cu",
+                 "tpu_zstd/ops/pallas_sort.py:125 sort_rows"),
+        "match": (match.match_windows, match.match_windows_plain, "tpu_zstd_torch/csrc/match.cu",
+                  "tpu_zstd/ops/pallas_match.py:133 match_windows"),
     }
     # K8 and K9 are one CUDA kernel (csrc/exec.cu); the kernels line gives
     # each TPU kernel its row.
@@ -238,6 +266,8 @@ def main() -> int:
             a, b = (tuple(live_cols(x, args[3]) for x in y) for y in (a, b))
         elif name == "exec":  # live up to out_len
             a, b = (live_cols(a[0], a[1]), a[1]), (live_cols(b[0], b[1]), b[1])
+        elif name in ("sort", "match"):  # tuples of outputs
+            pass
         else:
             a, b = (a,), (b,)
         for x, y in zip(a, b):
@@ -314,7 +344,7 @@ def main() -> int:
         input (args, kwargs, calls) a kernel wrapper received; with count,
         every kernel's launch count is set to 0 just before and read just
         after."""
-        captured: dict[str, dict] = {k: {} for k in K}
+        captured: dict[str, dict] = {k: {} for k in [*K, *(s[0] for s in sites)]}
         originals = {(mod, attr): getattr(mod, attr) for _, mod, attr in sites}
 
         def recorder(name, fn):
@@ -427,6 +457,41 @@ def main() -> int:
         bank = np.repeat(rng.integers(0, 400, (B, 128)), per, axis=0)
         hold("opt", (cu(packed.astype(np.int32)), mm, cap), f"mm {mm} cap {cap} ({S}, 1024)",
              {"lit_bits": cu(lit_bits.astype(np.int32)), "cost_bank": cu(bank.astype(np.int32))})
+    # K12: unique keys spanning negative values, with 0-3 payloads.
+    for R, W, P in ((2, 1024, 0), (2, 2048, 1), (1, 8192, 3)):
+        key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1) * 3 - W
+        hold("sort", tuple(cu(x.astype(np.int32)) for x in
+                           [key] + [rng.integers(-2**31, 2**31, (R, W)) for _ in range(P)]),
+             f"({R}, {W}) with {P} payloads")
+    # K13: low-entropy windows (hashes collide as in text) at the reference
+    # test's shape (2 x 1024) and at the three level shapes (2048 x 8192).
+    for R, W, depth, nw, hl in ((2, 1024, 2, 2, 12), (2, 1024, 8, 8, 12),
+                                (2048, 8192, 3, 4, 15), (2048, 8192, 8, 2, 17),
+                                (2048, 8192, 8, 16, 17)):
+        byt = rng.integers(0, 7, (R, W + 4 * nw + 4), dtype=np.uint8).astype(np.uint32)
+        w = byt[:, :-3] | (byt[:, 1:-2] << 8) | (byt[:, 2:-1] << 16) | (byt[:, 3:] << 24)
+        h = ((w.astype(np.uint64) * 2654435761) % (1 << 32) >> (32 - hl)).astype(np.int64)
+        lpos = np.arange(W)
+        key = (np.where(lpos < W - 3, h[:, :W], 1 << hl) << (W.bit_length() - 1)) | lpos
+        words = np.stack([w[:, 4 * k : 4 * k + W].view(np.int32) for k in range(nw)])
+        hold("match", (cu(key.astype(np.int32)), cu(words), depth, 1 << hl),
+             f"({R}, {W}) depth {depth} words {nw}")
+    # K11: as tests/test_pallas_deposit.py builds its inputs, its sparse
+    # case, and 32-bit fields running past the padded width.
+    dep_cases = []
+    for seed, maxlen in ((0, 20), (1, 32), (2, 6)):
+        r2 = np.random.default_rng(seed)
+        ln = r2.integers(0, maxlen + 1, (3, 1024)).astype(np.int32)
+        dep_cases.append((r2.integers(0, 1 << 31, (3, 1024)).astype(np.int64), ln, None))
+    ln = np.zeros((1, 256), np.int32)
+    ln[0, 5], ln[0, 200] = 13, 32
+    dep_cases.append((np.full((1, 256), 0xDEADBEEF, np.int64), ln, 200))
+    dep_cases.append((rng.integers(0, 1 << 32, (2, 1152), dtype=np.uint64).astype(np.int64),
+                      np.full((2, 1152), 32, np.int32), 400))
+    for vals, ln, nwd in dep_cases:
+        offs = (np.cumsum(ln, axis=1) - ln).astype(np.int32)
+        nwd = nwd or int(offs.max() // 32) + 64
+        hold("deposit", (cu(vals), cu(ln), cu(offs), nwd), f"{vals.shape} -> {nwd} words")
     print(f"phase 2: kernels == plain versions on seeded inputs ({time.perf_counter() - t0:.1f} s)")
 
     # --- running a main path with counts ---------------------------------------------
@@ -669,6 +734,92 @@ def main() -> int:
           f"({sum(gi4['sizes'])} bytes in, ratio {mgr19.stats.ratio:.4f}, {t_mgr19:.2f} s)")
     hold_captured(captured19, "phase 4c")
 
+    # --- 4d. the fused match route (K13) at levels 1, 3 and 5; K11 on the deposits ----
+    # find_matches(..., use_pallas_match=True) against the plain route on the
+    # inputs that parse_block hands find_matches at each level's pipeline
+    # config, K13 and K12 on the inputs K13 received, then K11 on the
+    # sequence deposits of the DEFAULT_CONFIG batch.
+    t0 = time.perf_counter()
+    posN = torch.arange(N, device=dev)
+    fused_t = {}
+    fused_launches = 0
+    for level in (1, 3, 5):
+        cfgL = _pipeline_config(CompressionConfig.from_level(level))
+        _, _, capL = record([("find_matches", lz77, "find_matches")],
+                            lambda: _parse_prep_stage(blocks, lengths, cfgL), False)
+        (fm_args, fm_kw, _), = capL["find_matches"].values()
+        if not lz77.fused_route_ok(N, fm_kw["hash_log"], fm_kw["mf_win_log"]):
+            _fail(f"phase 4d: the fused route does not apply at level {level}: {fm_kw}")
+        (f_ml, f_off), lf, capF = record(
+            [("match", lz77, "match_windows")],
+            lambda: lz77.find_matches(*fm_args, **fm_kw, use_pallas_match=True), True)
+        if lf["match"] != 1 or any(v for k, v in lf.items() if k != "match"):
+            _fail(f"phase 4d: level {level} fused find_matches launched {lf}")
+        fused_launches += lf["match"]
+        p_ml, p_off = lz77.find_matches(*fm_args, **fm_kw)
+        live = posN < fm_args[1].to(torch.int64)[:, None] - (fm_kw["min_match"] - 1)
+        bad = int((live & ((f_ml != p_ml) | (f_off != p_off))).sum())
+        dead = int((~live & ((f_ml != 0) | (f_off != 0))).sum())
+        if bad or dead:
+            _fail(f"phase 4d: level {level}: the fused route differs from the plain route at "
+                  f"{bad} live positions; {dead} dead positions are not 0")
+        (margs, mkw, _), = capF["match"].values()
+        key_m, words_m = margs[:2]
+        hold("match", margs, f"level {level} captured", mkw)
+        hold("sort", (key_m, *words_m.unbind(0)), f"level {level} K13's sort operands")
+        fused_t[level] = {  # K13's inputs kept on the host until the kernel table
+            "key": (tuple(a.cpu() if torch.is_tensor(a) else a for a in margs),),
+            "fused_ms": _time_ms(lambda: lz77.find_matches(*fm_args, **fm_kw,
+                                                           use_pallas_match=True), 5),
+            "plain_route_ms": _time_ms(lambda: lz77.find_matches(*fm_args, **fm_kw), 3),
+        }
+        print(f"phase 4d: level {level} ({fm_kw}): fused route == plain route at all "
+              f"{int(live.sum())} live positions, 0 at the {int((~live).sum())} dead ones; "
+              f"launches {lf}")
+        print(f"time [{card}]: level {level} find_matches fused (K13) "
+              f"{fused_t[level]['fused_ms']:.3f} ms, plain route "
+              f"{fused_t[level]['plain_route_ms']:.3f} ms")
+        del f_ml, f_off, p_ml, p_off, capL, capF, margs, key_m, words_m
+
+    # K11 on the sequence deposits of the DEFAULT_CONFIG batch (the calls that
+    # take the deposit tree): offsets the exclusive cumsum of the lengths, M
+    # padded to a multiple of 128 with zero-length fields at the last offset.
+    _, _, cap_dep = record([("deposit_in", fse, "deposit_bits")],
+                           lambda: compress_blocks_staged_many([(blocks, lengths)], cfg), False)
+    dep_runs = {}
+    for key, (dargs, _, n_calls) in cap_dep["deposit_in"].items():
+        vals, lens, nwd = dargs
+        if vals.shape[1] < 4096:
+            continue
+        tree_words, total = bitpack.deposit_bits_tree(vals, lens, nwd)
+        if bool((total > 32 * nwd).any()):
+            _fail("phase 4d: a captured deposit overflows its words")
+        lens64 = lens.to(torch.int64)
+        offs = torch.cumsum(lens64, 1) - lens64
+        pad = -vals.shape[1] % deposit.CHUNK_F
+        kargs = (torch.nn.functional.pad(vals.to(torch.int64), (0, pad)),
+                 torch.nn.functional.pad(lens64, (0, pad)).to(torch.int32),
+                 torch.cat([offs, offs[:, -1:].expand(-1, pad)], 1).to(torch.int32), nwd)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        got = deposit.deposit_bits_pallas(*kargs)
+        torch.cuda.synchronize()
+        if _kernels.launches["deposit"] != 1:
+            _fail(f"phase 4d: K11 launched {_kernels.launches['deposit']} times for one call")
+        if not torch.equal(got[:, :nwd], tree_words):
+            _fail(f"phase 4d: K11 differs from the deposit tree on {tuple(vals.shape)}")
+        hold("deposit", kargs, f"DEFAULT_CONFIG deposit {tuple(vals.shape)}")
+        dep_runs[(key_of(kargs), ())] = [tuple(a.cpu() if torch.is_tensor(a) else a
+                                               for a in kargs), {}, n_calls]
+        tree_ms = _time_ms(lambda: bitpack.deposit_bits_tree(vals, lens, nwd), 3)
+        fused_t.setdefault("tree_ms", []).append(tree_ms)
+        print(f"phase 4d: K11 == the deposit tree's {nwd} words on the DEFAULT_CONFIG batch's "
+              f"{tuple(vals.shape)} deposit (x{n_calls} a batch); tree {tree_ms:.3f} ms")
+    if not dep_runs:
+        _fail("phase 4d: no deposit of the DEFAULT_CONFIG batch took the tree route")
+    del cap_dep, got, kargs, tree_words, vals, lens, offs, lens64
+    print(f"phase 4d: done ({time.perf_counter() - t0:.1f} s)")
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -728,6 +879,25 @@ def main() -> int:
             nb = nbytes(packed) + nbytes(kw["lit_bits"]) + nbytes(kw["cost_bank"]) + nbytes(out)
             b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
             return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+        if name in ("sort", "match"):
+            R, W = args[0].shape
+            lw = W.bit_length() - 1
+            ops = R * (W // 2) * (lw * (lw + 1) // 2) * SORT_OPS_PER_CE
+            if name == "sort":
+                nb = 2 * sum(nbytes(a) for a in args)
+            else:  # key and words in, ml and off out; the compares this data needs
+                key_a, words_a, depth_a, sent_a = args
+                sh = torch.sort(key_a, dim=-1)[0] >> lw
+                idx = torch.arange(W, device=sh.device).expand(R, W)
+                new = torch.ones_like(sh, dtype=torch.bool)
+                new[:, 1:] = sh[:, 1:] != sh[:, :-1]
+                start = torch.cummax(torch.where(new, idx, 0), dim=1)[0]
+                pairs = int(torch.where(sh < sent_a, torch.clamp(idx - start, max=depth_a),
+                                        0).sum())
+                ops += pairs * MATCH_OPS_PER_PAIR + R * W * MATCH_OPS_PER_POSITION
+                nb = 3 * nbytes(key_a) + nbytes(words_a)
+            b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+            return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
         if name == "concat":
             x, off, cnt, out_len = args
             c = cnt.to(torch.int64)
@@ -762,6 +932,12 @@ def main() -> int:
             return f"{key[0][2][0]} ({'lit_src' if key[1] else 'lits'})"
         if name == "opt":
             return f"{key[0][0][0]} mm {key[0][1]} cap {key[0][2]}"
+        if name == "sort":
+            return f"{key[0][0][0]} x {len(key[0])} operands"
+        if name == "match":
+            return f"{key[0][0][0]} depth {key[0][2]} words {key[0][1][0][0]}"
+        if name == "deposit":
+            return f"{key[0][0][0]} -> {key[0][3]} words"
         return f"{key[0][0][0]} {key[0][0][1]}"
 
     # Every captured shape is timed; `ms_per_batch` sums the kernel's time over
@@ -771,10 +947,42 @@ def main() -> int:
     all_captured = {k: captured[k] for k in ("roll", "concat", "greedy", "rep", "chain")}
     all_captured.update({k: dec_captured[k] for k in ("decode_huf", "decode_seq", "exec")})
     all_captured["opt"] = captured19["opt"]
+    # K13 and K12 at the three levels' shapes; the row (and the per-batch
+    # time) is level 3's, DEFAULT_CONFIG's. K11 on the DEFAULT_CONFIG deposits.
+    all_captured["match"] = {}
+    all_captured["sort"] = {}
+    for level in (1, 3, 5):
+        margs, = fused_t[level]["key"]
+        sargs = (margs[0], *margs[1].unbind(0))
+        all_captured["match"][(key_of(margs), ())] = [margs, {}, int(level == 3)]
+        all_captured["sort"][(key_of(sargs), ())] = [sargs, {}, int(level == 3)]
+        if level == 3:
+            rep_key = {"match": (key_of(margs), ()), "sort": (key_of(sargs), ())}
+    all_captured["deposit"] = dep_runs
+    # K13's launches on the fused route (one a level); K12 and K11 launch on no
+    # main path: K12's network runs inside each K13 launch, and the main path
+    # keeps the deposit tree, as the JAX package does.
     all_launches = {**launches, **{k: dec_launches[k] for k in ("decode_huf", "decode_seq",
                                                                  "exec")},
-                    "opt": launches19["opt"]}
-    plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1, "opt": 1}
+                    "opt": launches19["opt"], "match": fused_launches, "sort": 0,
+                    "deposit": 0}
+    extra = {
+        "match": {"level": 3, "launches_per_call": 1,
+                  "plain_route_ms": fused_t[3]["plain_route_ms"],
+                  "fused_route_ms": fused_t[3]["fused_ms"],
+                  "note": "library none; plain_route_ms is find_matches' sort route"},
+        "sort": {"level": 3, "network_runs_in": "match",
+                 "note": "its bitonic network runs inside each match launch"},
+        "deposit": {"launches_checked": len(dep_runs), "tree_ms": sum(fused_t["tree_ms"]),
+                    "note": "library none; checked on the DEFAULT_CONFIG batch's deposits, "
+                            "which the main path packs with the deposit tree"},
+    }
+
+    def sort_library(*ops):
+        k, order = torch.sort(ops[0], dim=-1)
+        return (k, *(torch.gather(p, -1, order) for p in ops[1:]))
+
+    plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1, "opt": 1, "match": 1}
     rows_out = []
     for name, (kern, plain, source, replaces) in K.items():
         per_batch = 0.0
@@ -784,6 +992,8 @@ def main() -> int:
                 key=lambda kv: -sum(nbytes(a) for a in kv[1][0] if torch.is_tensor(a))):
             if name == "chain":  # the wrapper's int32 copies are not the kernel's time
                 args = tuple(a.to(torch.int32).contiguous() for a in args)
+            if name in ("deposit", "sort", "match"):  # kept on the host since phase 4d
+                args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
             out = kern(*args, **kw)
             ms = _time_ms(lambda: kern(*args, **kw), 20)
             plain_ms = _time_ms(lambda: plain(*args, **kw), plain_iters.get(name, 3))
@@ -792,7 +1002,7 @@ def main() -> int:
             shape = shape_of(name, key)
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
-            if row is None or key[0][0] == ((B, N), "torch.uint8"):
+            if row is None or key[0][0] == ((B, N), "torch.uint8") or key == rep_key.get(name):
                 row = {
                     "name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": all_launches[name], "max_abs_err": max_err[name],
@@ -801,7 +1011,10 @@ def main() -> int:
                     "launches_slice1": launches1.get(name, 0),
                     "launches_level19": launches19.get(name, 0),
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
+                    **extra.get(name, {}),
                 }
+                if name == "sort":
+                    row["library_ms"] = _time_ms(lambda: sort_library(*args), 3)
         row["ms_per_batch"] = per_batch
         rows_out.append(row)
         print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over "

@@ -1,8 +1,8 @@
-"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K13) against their plain PyTorch versions, on
 a card, a DEFAULT_CONFIG frame and an optimal-parse (level 19, trimmed
 search) frame made on the card against the ones made on the CPU, and the
 decode of decode_accel frames on the card against the
-input. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
+input, and the fused match route (K13) against the CPU's. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
 exact equality; the K5 state chains on their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
 tests/test_torch_*.py files.)
@@ -17,7 +17,8 @@ import torch_cases
 from tpu_zstd_torch.api import config, decompress, manager
 from tpu_zstd_torch.corpus import make_corpus
 from tpu_zstd_torch.ops import (
-    chain, concat, decode, decode_lanes, greedy, opt, pipeline, rep, roll,
+    chain, concat, decode, decode_lanes, deposit, greedy, lz77, match, opt, pipeline, rep, roll,
+    sort,
 )
 from tpu_zstd_torch.ops import exec as execmod
 
@@ -72,6 +73,32 @@ def test_cuda_kernels_match_plain():
     assert manager.compress_items(items, opt_cfg, device=dev) == manager.compress_items(
         items, opt_cfg, device="cpu")
     _check_decode_kernels(dev)
+    _check_fused_route_kernels(dev)
+
+
+def _check_fused_route_kernels(dev):
+    """K12, K13 and K11 against their plain versions on the seeded cases,
+    and the fused route against the sort route at its live positions."""
+    for name in ("sort_rows_1024", "sort_rows_2048", "sort_rows_8192"):
+        ops = [_t(x).to(dev) for x in torch_cases.CASES[name].inputs()["ops"]]
+        for a, b in zip(sort.sort_rows(*ops), sort.sort_rows_plain(*ops)):
+            assert torch.equal(a, b), name
+    for name in ("match_windows_d2_w2", "match_windows_d8_w8"):
+        i = torch_cases.CASES[name].inputs()
+        args = (_t(i["key"]).to(dev), [_t(w).to(dev) for w in i["words"]], i["depth"],
+                i["sentinel"])
+        for a, b in zip(match.match_windows(*args), match.match_windows_plain(*args)):
+            assert torch.equal(a, b), name
+    for kind in (0, 1, 2, "sparse", "edge"):
+        i = torch_cases.CASES[f"deposit_pallas_{kind}"].inputs()
+        args = [_t(i[k]).to(dev) for k in ("vals", "lens", "offs")] + [i["num_words"]]
+        assert torch.equal(deposit.deposit_bits_pallas(*args),
+                           deposit.deposit_bits_pallas_plain(*args)), kind
+    i = torch_cases.CASES["find_matches_fused"].inputs()
+    b, n = _t(i["blocks"]).to(dev), _t(i["lengths"]).to(dev)
+    fml, foff = lz77.find_matches(b, n, use_pallas_match=True, **torch_cases.FUSED_KW)
+    want = torch_cases.CASES["find_matches_fused"].port(i)
+    assert torch.equal(fml.cpu(), want["fused_ml"]) and torch.equal(foff.cpu(), want["fused_off"])
 
 
 def _live(x, n):

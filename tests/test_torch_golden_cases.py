@@ -14,8 +14,11 @@ kernels K6-K9, and `prepare_decompress_batch` on the port's accel and plain
 frames and on libzstd's) and the fourth (min_match 3, the near-offset band,
 the wide sort key, the search over the whole block, LDM, the plain version
 of the segment DP K10, the optimal parse with its overflow poison, and
-level 7/12/19/22 item frames at 16 KB blocks); stock libzstd (`zstandard`)
-decodes every port frame.
+level 7/12/19/22 item frames at 16 KB blocks) and the fifth (the plain
+versions of the row sort K12, the fused match finder K13 and the bit
+deposit K11, and `find_matches` with `use_pallas_match`, both as the JAX
+package runs it on the CPU and through the fused route); stock libzstd
+(`zstandard`) decodes every port frame.
 
 This file imports neither JAX nor the JAX package and compiles nothing; it
 runs in a few seconds. It holds nine items: pytest-xdist's `--dist loadfile`
@@ -40,10 +43,14 @@ import zstandard
 TOPICS = {
     "kernels": ["roll_u8", "roll_i32", "concat", "greedy", "rep", "decode_sequences_serial",
                 "decode_sequences_chunked", "decode_huffman", "execute_sequences",
-                "opt_steps_mm3_cap64", "opt_steps_mm4_cap16"],
+                "opt_steps_mm3_cap64", "opt_steps_mm4_cap16", "sort_rows_1024", "sort_rows_2048",
+                "sort_rows_8192", "match_windows_d2_w2", "match_windows_d8_w8",
+                "deposit_pallas_0", "deposit_pallas_1", "deposit_pallas_2",
+                "deposit_pallas_sparse", "deposit_pallas_edge"],
     "deposit_parse_predefined": ["deposit_scatter", "deposit_tree", "parse_8k",
                                  "encode_predefined", "find_matches_wide", "find_matches_whole",
-                                 "find_matches_long", "parse_optimal", "parse_optimal_overflow"],
+                                 "find_matches_long", "parse_optimal", "parse_optimal_overflow",
+                                 "find_matches_fused"],
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
     "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
                    "choose_tables_of", "choose_tables_ml", "format_decode"],

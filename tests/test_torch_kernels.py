@@ -1,4 +1,4 @@
-"""The PyTorch port's kernels (K1-K4) and bit packing against their JAX twins.
+"""The PyTorch port's kernels and bit packing against their JAX twins.
 
 Each plain PyTorch version (what a kernel wrapper runs on a CPU tensor) gets
 the same seeded numpy inputs as the JAX function the reference runs on the
@@ -10,7 +10,9 @@ after every file of the reference package's suite, so adding the port's
 tests leaves that suite's schedule as it was. tests/test_torch_cuda.py holds
 the CUDA kernels against these plain versions on a card. The seeded cases of
 tests/torch_cases.py (group "kernels") also run through both packages here,
-held against tests/golden/torch_cases.json.
+held against tests/golden/torch_cases.json: among them the plain versions
+of K11 (deposit), K12 (row sort) and K13 (fused match finder) against the
+Pallas kernels in interpret mode, at the reference tests' shapes.
 """
 
 import jax
@@ -24,7 +26,7 @@ from tpu_zstd.ops import bitpack as jbit
 from tpu_zstd.ops.lz77_jax import greedy_parse as jax_greedy_parse
 from tpu_zstd.ops.pallas_concat import concat_varlen as jax_concat_varlen
 from tpu_zstd.ops.pallas_rep import rep_codes_scan
-from tpu_zstd_torch.ops import bitpack, concat, greedy, rep, roll
+from tpu_zstd_torch.ops import bitpack, concat, deposit, greedy, match, rep, roll, sort
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -161,6 +163,21 @@ def _check_shift_words_and_words_to_bytes_match_jax():
     np.testing.assert_array_equal(bitpack.words_to_bytes(got).numpy(), ref_b)
 
 
+def _check_new_kernel_wrappers_refuse_bad_shapes():
+    """K11-K13's wrappers raise where the TPU kernels assert."""
+    with pytest.raises(ValueError, match="power of two"):
+        sort.sort_rows(torch.zeros((2, 1536), dtype=torch.int32))
+    with pytest.raises(ValueError, match="power of two"):
+        match.match_windows(torch.zeros((2, 512), dtype=torch.int32), [], 2, 1 << 12)
+    with pytest.raises(ValueError, match="depth"):
+        match.match_windows(torch.zeros((2, 1024), dtype=torch.int32), [], 128, 1 << 12)
+    z = torch.zeros((2, 200), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        deposit.deposit_bits_pallas(z, z, z, 64)
+    assert deposit.padded_words(100) == 1024 and deposit.padded_words(1000) == 1536
+    assert sort.sortable(1024) and not sort.sortable(3072)
+
+
 def test_plain_kernels_and_bitpack_match_jax():
     """One test item for the whole file (see the module docstring)."""
     for dtype, width in [(np.uint8, 4096), (np.int32, 2048), (np.int32, 100)]:
@@ -174,4 +191,5 @@ def test_plain_kernels_and_bitpack_match_jax():
     for M in (300, 5000):  # the scatter deposit, then the tree deposit
         _check_deposit_bits_matches_jax(M)
     _check_shift_words_and_words_to_bytes_match_jax()
+    _check_new_kernel_wrappers_refuse_bad_shapes()
     torch_cases.check_live("kernels")

@@ -4,8 +4,10 @@ Blocks come from the conftest corpus and a seeded mix; the JAX functions run
 on the CPU (XLA paths), the port's on CPU tensors (plain kernel versions).
 Outputs are integers: exact equality. 8 KB blocks with hash_log 13 and
 mf_win_log 12 exercise both the windowed match search (2 windows) and the
-windowed extraction (4 windows of 2 KB). The seeded parse case of
-tests/torch_cases.py also runs through both packages, held against
+windowed extraction (4 windows of 2 KB). The fused match route (the K13
+path, plain version on the CPU) is held against the sort route. The seeded
+parse cases of tests/torch_cases.py (the parse and `find_matches` with
+`use_pallas_match`) also run through both packages, held against
 tests/golden/torch_cases.json.
 """
 
@@ -119,6 +121,25 @@ def _check_greedy_parse_matches_jax(lazy):
     np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(ref[1]))
 
 
+def _check_fused_route_equals_sort_route(batch):
+    """The fused route (find_matches_fused: the K13 path with its plain
+    version on the CPU) equals the sort route at every live position and is
+    0 at dead ones; use_pallas_match with two_band raises."""
+    blocks, lengths = (torch.from_numpy(a) for a in batch)
+    kw = dict(hash_log=13, depth=8, cap=16, mf_win_log=10)
+    ml, off = tl.find_matches(blocks, lengths, **kw)
+    fml, foff = tl.find_matches_fused(blocks, lengths, **kw)
+    live = torch.arange(N) < lengths.to(torch.int64)[:, None] - 3
+    assert torch.equal(torch.where(live, fml, 0), torch.where(live, ml, 0))
+    assert torch.equal(torch.where(live, foff, 0), torch.where(live, off, 0))
+    assert not fml[~live].any() and not foff[~live].any()
+    assert (fml >= 4).sum() > 1000
+    with pytest.raises(ValueError, match="two_band"):
+        tl.find_matches(blocks, lengths, use_pallas_match=True, two_band=True, **kw)
+    with pytest.raises(ValueError, match="mf_win_log"):
+        tl.find_matches_fused(blocks, lengths, hash_log=17, depth=2, cap=8, mf_win_log=14)
+
+
 def test_parse_matches_jax(corpus):
     """One test item for the whole file (see tests/test_torch_kernels.py)."""
     batch = _batch(corpus)
@@ -128,4 +149,5 @@ def test_parse_matches_jax(corpus):
     _check_parse_block_matches_jax_field_for_field(batch)
     for lazy in (False, True):
         _check_greedy_parse_matches_jax(lazy)
+    _check_fused_route_equals_sort_route(batch)
     torch_cases.check_live("parse")

@@ -174,7 +174,7 @@ def _check_port_imports_no_jax_and_no_reference_package():
         "ops/chain", "ops/fse_tables", "ops/huffman", "format/xxhash", "api/config",
         "api/manager", "ops/decode", "ops/decode_lanes", "ops/exec", "api/decompress",
         "format/accel", "format/bitstream", "format/huffman", "format/sequences",
-        "ops/opt")} <= rel
+        "ops/opt", "ops/sort", "ops/match", "ops/deposit")} <= rel
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -1593,3 +1593,200 @@ def _whole_frame_ref(i):
 WHOLE_KW = dict(block_size=16384, hash_log=13, depth=4, cap=8, mf_win_log=0)
 case("frame_whole_block", "optimal", lambda: {"data": _mix(77, 2 * 16384)}, _whole_frame_port,
      _whole_frame_ref)
+
+
+# --- Slice 5: the fused match route (K13), the row sort (K12), the deposit (K11) ---
+
+
+def _sort_inputs(R, W, P):
+    """As tests/test_pallas_sort.py builds them, with keys shifted to span
+    negative values (the kernels compare signed int32)."""
+    def make():
+        rng = np.random.default_rng(W + P)
+        key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1)
+        key = (key * 3 - W).astype(np.int32)
+        pays = [rng.integers(0, 1 << 30, (R, W), dtype=np.int32) for _ in range(P)]
+        return {"ops": [key] + pays}
+
+    return make
+
+
+def _sort_port(i):
+    from tpu_zstd_torch.ops import sort
+
+    return {f"op{k}": v for k, v in enumerate(sort.sort_rows(*(_t(x) for x in i["ops"])))}
+
+
+def _sort_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops.pallas_sort import sort_rows
+
+    return {f"op{k}": np.asarray(v)
+            for k, v in enumerate(sort_rows(*(jnp.asarray(x) for x in i["ops"])))}
+
+
+for _R, _W, _P in ((2, 1024, 0), (2, 2048, 1), (1, 8192, 3)):
+    case(f"sort_rows_{_W}", "kernels", _sort_inputs(_R, _W, _P), _sort_port, _sort_ref)
+
+
+def _match_inputs(depth, nwords):
+    """As tests/test_pallas_sort.py builds match_windows inputs: two 1024-
+    position windows of low-entropy bytes (hashes collide as in text),
+    hash_log 12, the last 3 positions dead."""
+    def make():
+        rng = np.random.default_rng(100 * depth + nwords)
+        R, W, hash_log, plog = 2, 1024, 12, 10
+        sentinel = 1 << hash_log
+        data = rng.integers(0, 7, (R, W + 64), dtype=np.uint8)
+        b = data.astype(np.uint32)
+        w = b[:, :-3] | (b[:, 1:-2] << 8) | (b[:, 2:-1] << 16) | (b[:, 3:] << 24)
+        h = ((w.astype(np.uint64) * 2654435761) % (1 << 32) >> (32 - hash_log)).astype(np.int32)
+        words = [w[:, 4 * k : 4 * k + W].view(np.int32).copy() for k in range(nwords)]
+        lpos = np.tile(np.arange(W, dtype=np.int32), (R, 1))
+        hw = np.where(lpos < W - 3, h[:, :W], sentinel)
+        return {"key": ((hw << plog) | lpos).astype(np.int32), "words": words, "depth": depth,
+                "sentinel": sentinel}
+
+    return make
+
+
+def _match_port(i):
+    from tpu_zstd_torch.ops import match
+
+    ml, off = match.match_windows(_t(i["key"]), [_t(w) for w in i["words"]], i["depth"],
+                                  i["sentinel"])
+    return {"ml": ml, "off": off}
+
+
+def _match_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops.pallas_match import match_windows
+
+    ml, off = match_windows(jnp.asarray(i["key"]), [jnp.asarray(w) for w in i["words"]],
+                            i["depth"], i["sentinel"])
+    return {"ml": np.asarray(ml), "off": np.asarray(off)}
+
+
+for _d, _nw in ((2, 2), (8, 8)):
+    case(f"match_windows_d{_d}_w{_nw}", "kernels", _match_inputs(_d, _nw), _match_port,
+         _match_ref)
+
+
+def _deposit_pallas_inputs(kind):
+    """Seeds 0-2 as tests/test_pallas_deposit.py builds them (3 rows of 1024
+    fields, offsets the exclusive cumsum), its sparse case (two live fields),
+    and an edge case: 32-bit fields (full u32 values) running past the
+    padded width, so the last chunks' windows sit at the clamped row and
+    their trailing parts are dropped."""
+    def make():
+        if kind == "sparse":
+            lens = np.zeros((1, 256), np.int32)
+            lens[0, 5], lens[0, 200] = 13, 32
+            vals = np.full((1, 256), 0xDEADBEEF, np.int64)
+            num_words = 200
+        elif kind == "edge":
+            rng = np.random.default_rng(7)
+            lens = np.full((2, 1152), 32, np.int32)
+            lens[1] = rng.integers(0, 33, 1152)
+            vals = rng.integers(0, 1 << 32, (2, 1152), dtype=np.uint64).astype(np.int64)
+            num_words = 400
+        else:
+            rng = np.random.default_rng(kind)
+            maxlen = (20, 32, 6)[kind]
+            lens = rng.integers(0, maxlen + 1, (3, 1024)).astype(np.int32)
+            vals = rng.integers(0, 1 << 31, (3, 1024)).astype(np.int64)
+            num_words = None
+        offs = (np.cumsum(lens, axis=1) - lens).astype(np.int32)
+        if num_words is None:
+            num_words = int(offs.max() // 32) + 64
+        return {"vals": vals, "lens": lens, "offs": offs, "num_words": num_words}
+
+    return make
+
+
+def _deposit_pallas_port(i):
+    from tpu_zstd_torch.ops import deposit
+
+    return {"words": deposit.deposit_bits_pallas(_t(i["vals"]), _t(i["lens"]), _t(i["offs"]),
+                                                 i["num_words"])}
+
+
+def _deposit_pallas_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops.pallas_deposit import deposit_bits_pallas
+
+    return {"words": np.asarray(deposit_bits_pallas(
+        jnp.asarray(i["vals"].astype(np.uint32)), jnp.asarray(i["lens"]), jnp.asarray(i["offs"]),
+        i["num_words"], True))}
+
+
+for _kind in (0, 1, 2, "sparse", "edge"):
+    case(f"deposit_pallas_{_kind}", "kernels", _deposit_pallas_inputs(_kind),
+         _deposit_pallas_port, _deposit_pallas_ref)
+
+FUSED_N = 2048
+FUSED_KW = dict(hash_log=12, depth=3, cap=16, mf_win_log=10)
+
+
+def _fused_inputs():
+    """Two 2 KB blocks (1024-position windows): corpus text, and a seeded
+    mix with repeats whose last 777 bytes are outside the payload."""
+    rng = np.random.default_rng(0xF05ED)
+    mix = rng.integers(0, 256, FUSED_N, dtype=np.uint8)
+    for _ in range(30):
+        ln = int(rng.integers(4, 200))
+        src, dst = rng.integers(0, FUSED_N - ln, 2)
+        mix[dst:dst + ln] = mix[src:src + ln]
+    blocks = np.stack([np.frombuffer(make_corpus(FUSED_N), np.uint8), mix])
+    return {"blocks": blocks, "lengths": np.array([FUSED_N, FUSED_N - 777], np.int32)}
+
+
+def _fused_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    b, n = _t(i["blocks"]), _t(i["lengths"])
+    ml, off = lz77.find_matches(b, n, use_pallas_match=True, **FUSED_KW)
+    fml, foff = lz77.find_matches_fused(b, n, **FUSED_KW)
+    return {"ml": ml, "off": off, "fused_ml": fml, "fused_off": foff}
+
+
+def _fused_ref(i):
+    """find_matches(use_pallas_match=True) as the JAX package runs it on the
+    CPU (its sort route), and its fused route (tpu_zstd/ops/lz77_jax.py,
+    the use_pallas_match branch of find_matches) with the Pallas kernel in
+    interpret mode."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+    from tpu_zstd.ops.pallas_match import match_windows
+
+    blocks, lengths = jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"])
+    ml, off = jax.jit(jax.vmap(lambda b, n: lz77_jax.find_matches(
+        b, n, use_pallas_match=True, **FUSED_KW)))(blocks, lengths)
+    kw = FUSED_KW
+    W, N = 1 << kw["mf_win_log"], FUSED_N
+    sentinel = 1 << kw["hash_log"]
+    keys, wws = [], []
+    for b, n in zip(blocks, lengths):
+        pos = jnp.arange(N, dtype=jnp.int32)
+        w, h = lz77_jax._hash_words(b, kw["hash_log"], 4)
+        live = pos < n - 3
+        hw = jnp.where(live, h, sentinel).reshape(N // W, W)
+        keys.append((hw << kw["mf_win_log"]) | jnp.arange(W, dtype=jnp.int32))
+        wws.append([jnp.roll(w, -4 * k).astype(jnp.int32).reshape(N // W, W)
+                    for k in range(kw["cap"] // 4)])
+    fml, foff = match_windows(jnp.concatenate(keys),
+                              [jnp.concatenate([x[k] for x in wws]) for k in range(len(wws[0]))],
+                              kw["depth"], sentinel)
+    pos = np.arange(N)
+    fml = np.minimum(np.asarray(fml).reshape(-1, N),
+                     np.maximum(np.asarray(i["lengths"])[:, None] - pos, 0))
+    return {"ml": np.asarray(ml), "off": np.asarray(off), "fused_ml": fml,
+            "fused_off": np.asarray(foff).reshape(-1, N)}
+
+
+case("find_matches_fused", "parse", _fused_inputs, _fused_port, _fused_ref)

@@ -49,10 +49,14 @@ SIGNATURES = {
     "tz_decode_sequences": (P,) * 12 + (I32,) * 7 + (P,),
     "tz_exec_sequences": (P,) * 11 + (I32,) * 6 + (P,),
     "tz_opt_steps": (P, P, P, P, I64, I32, I32, I32, P),
+    "tz_sort_rows": (P, P, P, P, I32, I64, I32, P),
+    "tz_match_windows": (P, P, P, I64, I32, I32, I32, I32, P),
+    "tz_deposit_bits": (P, P, P, P, I64, I32, I32, P),
 }
 
 launches = {"roll": 0, "concat": 0, "greedy": 0, "rep": 0, "chain": 0,
-            "decode_huf": 0, "decode_seq": 0, "exec": 0, "opt": 0}
+            "decode_huf": 0, "decode_seq": 0, "exec": 0, "opt": 0, "sort": 0, "match": 0,
+            "deposit": 0}
 
 # Filled by the first build in this process: seconds spent in nvcc and the
 # assembler's register / shared-memory report (`-Xptxas -v`).

@@ -38,22 +38,31 @@ def deposit_bits(values: torch.Tensor, lengths: torch.Tensor, num_words: int):
         # Large deposits: tree concatenation (no scatters).
         return deposit_bits_tree(values, lengths, num_words)
     offs = torch.cumsum(lengths, dim=-1) - lengths
-    total_bits = lengths.sum(dim=-1)
-    v = values.to(torch.int64) & _field_mask(lengths)
-    word = offs >> 5
-    sh = offs & 31
+    return deposit_bits_at(values, lengths, offs, num_words), lengths.sum(dim=-1)
+
+
+def deposit_bits_at(values: torch.Tensor, lengths: torch.Tensor, offsets: torch.Tensor,
+                    num_words: int) -> torch.Tensor:
+    """Like deposit_bits, with the caller's absolute bit offsets (B, M) per
+    field. Field bit ranges must be disjoint (add == or). Returns (B,
+    num_words) int64 holding u32 words; parts past num_words are dropped."""
+    lengths = lengths.to(torch.int64)
+    offsets = offsets.to(torch.int64)
+    v = values.to(torch.int64) & _field_mask(torch.clamp(lengths, max=32))
+    word = offsets >> 5
+    sh = offsets & 31
     lo = (v << sh) & M32
     # High spill into the next word, split in two shifts (defined at sh == 0).
     hi = (v >> 1) >> (31 - sh)
-    # Zero-length fields and words past the buffer go to a discarded slot.
-    live = lengths > 0
-    slot_lo = torch.where(live & (word < num_words), word, num_words)
-    slot_hi = torch.where(live & (word + 1 < num_words), word + 1, num_words)
-    B = values.shape[0]
-    words = torch.zeros((B, num_words + 1), dtype=torch.int64, device=values.device)
+    # Zero-length fields and words outside the buffer go to a discarded slot.
+    word = torch.where(lengths > 0, word, num_words)
+    slot_lo = torch.where((word >= 0) & (word < num_words), word, num_words)
+    slot_hi = torch.where((word + 1 >= 0) & (word + 1 < num_words), word + 1, num_words)
+    words = torch.zeros((values.shape[0], num_words + 1), dtype=torch.int64,
+                        device=values.device)
     words.scatter_add_(1, slot_lo, lo)
     words.scatter_add_(1, slot_hi, hi)
-    return words[:, :num_words] & M32, total_bits
+    return words[:, :num_words] & M32
 
 
 def deposit_bits_tree(

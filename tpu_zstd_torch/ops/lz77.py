@@ -17,7 +17,9 @@ payload gives the same order as the JAX package's unstable one- or two-key
 sorts; the restore to position order is a scatter by the sorted positions.
 Four Pallas TPU kernels on this path are CUDA kernels here: the greedy walk
 (K3, ops/greedy.py), the segment concatenation (K2, ops/concat.py), the
-repcode walk (K4, ops/rep.py) and the segment DP (K10, ops/opt.py).
+repcode walk (K4, ops/rep.py) and the segment DP (K10, ops/opt.py); a fifth,
+the fused match finder (K13, ops/match.py), serves `find_matches` when asked
+for (`use_pallas_match`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .bitpack import dynroll_left
 from .concat import concat_varlen
 from .fse import highbit32, ml_code
 from .greedy import greedy_segments
+from .match import match_windows
 from .opt import SCALE, opt_steps
 from .rep import rep_codes
 
@@ -148,6 +151,7 @@ def find_matches(
     mf_win_log: int,
     min_match: int = 4,
     two_band: bool = False,
+    use_pallas_match: bool = False,
 ):
     """Best (capped) match per position: returns (best_ml, best_off), each
     (B, N) int64 in position order, and with two_band also (ml2, off2), the
@@ -158,9 +162,23 @@ def find_matches(
     the candidate search is local to 2^mf_win_log windows, else it spans the
     whole block; match content extends past window ends (words are formed
     on the whole block).
+
+    use_pallas_match asks for the fused route (kernel K13, one launch over
+    every window of the batch), taken where the JAX package takes its fused
+    Pallas route: windowed search, mf_win_log >= 10, the key hash << plog |
+    pos within 31 bits, and `block` on the card (on the CPU the sort route
+    runs, as the JAX package's does off the TPU). The fused route gives 0 at
+    dead positions, where the sort route's clamp leaves lengths under
+    min_match. It returns one band: two_band with use_pallas_match raises.
     """
+    if use_pallas_match and two_band:
+        raise ValueError("find_matches: the fused route (use_pallas_match) returns one "
+                         "candidate band; two_band is not available with it")
     B, N = block.shape
     dev = block.device
+    if use_pallas_match and dev.type == "cuda" and fused_route_ok(N, hash_log, mf_win_log):
+        return find_matches_fused(block, n, hash_log=hash_log, depth=depth, cap=cap,
+                                  mf_win_log=mf_win_log, min_match=min_match)
     nwords = cap // 4
     pos = torch.arange(N, device=dev)
     n = n.to(torch.int64)
@@ -210,6 +228,45 @@ def find_matches(
     if two_band:
         out += [torch.minimum(best_ml2, room), best_off2]
     return tuple(v.reshape(B, N) for v in _scatter_back(sp, *out))
+
+
+def fused_route_ok(N: int, hash_log: int, mf_win_log: int) -> bool:
+    """Where the fused route runs: a windowed search over windows of at
+    least 1024 positions whose key hash << mf_win_log | pos fits 31 bits."""
+    return _is_windowed(N, mf_win_log) and mf_win_log >= 10 and hash_log + 1 + mf_win_log <= 31
+
+
+def find_matches_fused(block: torch.Tensor, n: torch.Tensor, *, hash_log: int, depth: int,
+                       cap: int, mf_win_log: int, min_match: int = 4):
+    """The fused route of `find_matches`: keys hash << mf_win_log | pos
+    (the sentinel hash 2^hash_log on dead positions) and the cap // 4 suffix
+    words per window, one `match_windows` call over every window of the
+    batch (K13 on a CUDA block, its plain version on a CPU one), lengths
+    clamped to the block end. Returns (best_ml, best_off), each (B, N)
+    int64, 0 at dead positions."""
+    B, N = block.shape
+    if not fused_route_ok(N, hash_log, mf_win_log):
+        raise ValueError(f"find_matches_fused: needs a windowed search with mf_win_log >= 10 "
+                         f"and hash_log + 1 + mf_win_log <= 31 (N {N}, hash_log {hash_log}, "
+                         f"mf_win_log {mf_win_log})")
+    dev = block.device
+    nwords = cap // 4
+    W = 1 << mf_win_log
+    sentinel = 1 << hash_log
+    pos = torch.arange(N, device=dev)
+    n = n.to(torch.int64)
+    w, h = _hash_words(block, hash_log, min_match)
+    live = pos < n[:, None] - (min_match - 1)
+    key = ((torch.where(live, h, sentinel) << mf_win_log) | (pos & (W - 1))).to(torch.int32)
+    del h, live
+    shape = (B * (N // W), W)
+    words = torch.stack([_as_i32(torch.roll(w, -4 * k, -1)).reshape(shape)
+                         for k in range(nwords)]) if nwords else []
+    del w
+    best_ml, best_off = match_windows(key.reshape(shape), words, depth, sentinel)
+    best_ml = torch.minimum(best_ml.reshape(B, N).to(torch.int64),
+                            torch.clamp(n[:, None] - pos, min=0))
+    return best_ml, best_off.reshape(B, N).to(torch.int64)
 
 
 def find_matches_long(
