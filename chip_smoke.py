@@ -13,7 +13,13 @@ Phases, in order; any failure exits non-zero:
    and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
    decode plan stages for 16 seeded 128 KB decode_accel frames (made by the
    port on the card); K8/K9 seeded valid sequences, literals front-compacted
-   or read from 4-stream rows, without and with a 4 KB window; K10 seeded
+   or read from 4-stream rows, without and with a 4 KB window, and the hard
+   lists of tests/torch_cases.py `exec_hard_inputs` (overlapping matches at
+   off 1-3, a chain of matches each copying the one before, window reads, no
+   sequences, output filling N); K4 also the hard rows of `rep_hard_rows`
+   (a block alternating two offsets, ll == 0 repcode 3, invalid rows
+   scattered, nseq 0, row counts off the chunk), with the counters each
+   redesigned kernel keeps (doubling rounds, chunks that met); K10 seeded
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
    rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
    per 16 rows); K12 on unique keys spanning negative values with 0-3
@@ -71,7 +77,9 @@ Phases, in order; any failure exits non-zero:
    kernel its time by CUDA events at every captured shape, its bound and its
    plain version's time (K12 also `torch.sort` + `torch.gather`, its
    library call; K13 beside the plain route's `find_matches`, K11 beside the
-   deposit tree, both in phase 4d).
+   deposit tree, both in phase 4d); K4's and K8/K9's counters on the main
+   paths' inputs (chunks that met their speculative walk, fix-up rounds;
+   pointer-doubling rounds a tile).
 
 Stock libzstd (`zstandard`) decodes the frames where it is installed; where
 it is not, the run says so once and golden identity stands in for it.
@@ -152,6 +160,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_cases  # the seeded hard inputs of K4 and K8/K9
     from tpu_zstd_torch.api import decompress
     from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig
     from tpu_zstd_torch.api.manager import BatchManager, _pipeline_config, compress_items
@@ -278,6 +288,16 @@ def main() -> int:
             if err != 0:
                 _fail(f"{name} {label}: kernel differs from plain version (max abs err {err})")
 
+    def kernel_stats(name, args, kw):
+        """The counters K4 (per block: chunks, chunks whose re-walk met no
+        earlier walk, fix-up rounds, rows re-walked, tiles one thread
+        finished) or K8/K9 (per block: tiles, doubling rounds, most rounds in
+        a tile) keep when handed a stats tensor."""
+        rows_s = args[0].shape[0] if name == "rep" else args[2].shape[0]
+        st = torch.zeros((rows_s, 5 if name == "rep" else 3), dtype=torch.int32, device=dev)
+        K[name][0](*args, **kw, stats=st)
+        return st.cpu()
+
     # --- 2. kernels vs plain, seeded inputs ---------------------------------------------
     rng = np.random.default_rng(1234)
 
@@ -307,6 +327,17 @@ def main() -> int:
     valid = np.arange(rows)[None, :] < rng.integers(0, rows + 1, (B, 1))
     packed = np.where(valid, offs | (rng.integers(0, 2, (B, rows)) << 21) | (1 << 22), 0)
     hold("rep", (cu(packed.astype(np.int32)),), "(128, 32768)")
+    # K4's hard rows: repeats across chunk boundaries, a block alternating
+    # between two offsets (no re-walked chunk meets its speculative walk),
+    # ll == 0 rows taking repcode 3, invalid rows scattered between valid
+    # ones, nseq 0, and row counts that are no multiple of a chunk.
+    for rows_h in (32768 + 77, 2100):
+        hard = cu(torch_cases.rep_hard_rows(rows_h, rows_h))
+        hold("rep", (hard,), f"hard rows (6, {rows_h})")
+        print(f"phase 2: K4 hard rows (6, {rows_h}) per block [chunks, unmet, rounds, rows "
+              f"re-walked, serial tiles]: {kernel_stats('rep', (hard,), {}).tolist()}")
+        print(f"time [{card}]: K4 hard rows (6, {rows_h}) "
+              f"{_time_ms(lambda: rep.rep_codes(hard), 3):.4f} ms")
     from tpu_zstd_torch.ops.fse_tables import build_cf_tables, normalize_64
 
     for R, nsym, msb in ((3 * B, 53, 21760), (2 * B, 13, 128)):
@@ -445,6 +476,23 @@ def main() -> int:
     syms = torch.stack(rows, 1).reshape(4 * B, -1).to(torch.uint8).contiguous()
     hold("exec", tuple(args) + (N, 0), "seeded sequences, literals from 4-stream rows",
          {"lit_src": (syms, nlit)})
+    # K8/K9's hard lists at the block width, one block per pattern: long
+    # overlapping matches at off 1-3, a chain of matches each copying the one
+    # before it (every doubling round), matches that read the 4 KB window,
+    # no sequences (tail literals only, and nothing at all), output filling N
+    # exactly; literals front-compacted and from 4-stream rows.
+    for W in (4096, 1):
+        h = torch_cases.exec_hard_inputs(W + 7, N, W)
+        hargs = tuple(cu(x) for x in h) + (N, W)
+        hsrc = {"lit_src": (cu(torch_cases.stream_rows(h[0], h[1], N // 4 + 64)), hargs[1])}
+        hold("exec", hargs, f"hard lists, window {W}")
+        hold("exec", hargs, f"hard lists, window {W}, literals from 4-stream rows", hsrc)
+        print(f"phase 2: K8 hard lists, window {W}, per block [tiles, doubling rounds, most "
+              f"in a tile]: {kernel_stats('exec', hargs, {}).tolist()}")
+        print(f"time [{card}]: K8 hard lists (6, {h[2].shape[1]}), window {W}: "
+              f"{_time_ms(lambda: execmod.execute_sequences(*hargs), 10):.4f} ms, from "
+              f"4-stream rows {_time_ms(lambda: execmod.execute_sequences(*hargs, **hsrc), 10):.4f}"
+              f" ms")
     # K10: seeded segment rows; one bank row and literal price per block of
     # `per` rows (128 segments of a 128 KB block; 16 of a 16 KB block).
     for mm, cap, per in ((3, 64, 128), (4, 16, 16)):
@@ -987,6 +1035,7 @@ def main() -> int:
     for name, (kern, plain, source, replaces) in K.items():
         per_batch = 0.0
         row = None
+        counters = {}
         for key, (args, kw, n_calls) in sorted(
                 all_captured[name].items(),
                 key=lambda kv: -sum(nbytes(a) for a in kv[1][0] if torch.is_tensor(a))):
@@ -1002,6 +1051,20 @@ def main() -> int:
             shape = shape_of(name, key)
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
+            if name in ("rep", "exec"):  # the redesigned kernels' own counters
+                st = kernel_stats(name, args, kw).to(torch.int64)
+                if name == "rep":
+                    got = {"chunks": int(st[:, 0].sum()), "chunks_unmet": int(st[:, 1].sum()),
+                           "fixup_rounds_max": int(st[:, 2].max()),
+                           "rows_rewalked": int(st[:, 3].sum()),
+                           "serial_tiles": int(st[:, 4].sum())}
+                else:
+                    got = {"tiles": int(st[:, 0].sum()), "doubling_rounds": int(st[:, 1].sum()),
+                           "doubling_rounds_max_tile": int(st[:, 2].max())}
+                print(f"kernel [{card}] {name} {shape} counters: {got}")
+                for k2, v in got.items():  # over the shapes: most of a max, else the sum
+                    c = counters.get(k2, 0)
+                    counters[k2] = max(c, v) if "_max" in k2 else c + v
             if row is None or key[0][0] == ((B, N), "torch.uint8") or key == rep_key.get(name):
                 row = {
                     "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1016,6 +1079,8 @@ def main() -> int:
                 if name == "sort":
                     row["library_ms"] = _time_ms(lambda: sort_library(*args), 3)
         row["ms_per_batch"] = per_batch
+        if counters:
+            row["counters_per_batch"] = counters
         rows_out.append(row)
         print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over "
               f"{all_launches[name]} launches")

@@ -50,6 +50,9 @@ def test_cuda_kernels_match_plain():
     assert torch.equal(greedy.greedy_segments(packed), greedy.greedy_segments_plain(packed))
     p = _t((rng.integers(1, 6, (5, 700)) | 1 << 22).astype(np.int32)).to(dev)
     assert torch.equal(rep.rep_codes(p), rep.rep_codes_plain(p))
+    for rows in (2100, 32768 + 77):  # K4's hard rows (one block never meets)
+        p = _t(torch_cases.rep_hard_rows(rows, rows)).to(dev)
+        assert torch.equal(rep.rep_codes(p), rep.rep_codes_plain(p)), rows
     for name in ("chain_sequences", "chain_weights"):
         i = torch_cases.CASES[name].inputs()
         keys = ("st", "dnb", "dfs", "init", "tl", "rle", "rsym", "nseq")
@@ -132,6 +135,15 @@ def _check_decode_kernels(dev):
         ref, rn = decode.execute_sequences_device(*eargs, 4096, W)
         assert torch.equal(n.cpu(), rn.cpu().to(torch.int32))
         assert torch.equal(_live(out, n), _live(ref, rn))
+    for W in (1, 4096):  # K8/K9's hard lists, from front-compacted and stream rows
+        h = torch_cases.exec_hard_inputs(W + 7, 8192, W)
+        eargs = [_t(a).to(dev) for a in h]
+        rows = _t(torch_cases.stream_rows(h[0], h[1], 8192 // 4 + 8)).to(dev)
+        for kw in ({}, {"lit_src": (rows, eargs[1])}):
+            out, n = execmod.execute_sequences(*eargs, 8192, W, **kw)
+            ref, rn = decode.execute_sequences_device(*eargs, 8192, W, **kw)
+            assert torch.equal(n.cpu(), rn.cpu().to(torch.int32)), W
+            assert torch.equal(_live(out, n), _live(ref, rn)), W
     c = torch_cases.CASES["decompress_batch_accel"]
     inp = c.inputs()
     out, lens = decompress.prepare_decompress_batch(inp["frames"], torch_cases.DEC_N).execute()

@@ -221,6 +221,41 @@ def _rep_ref(i):
 case("rep", "kernels", _rep_inputs, _rep_port, _rep_ref)
 
 
+def rep_hard_rows(seed: int, rows: int) -> np.ndarray:
+    """Packed rows (6, rows) that are hard for K4's chunked walk: small
+    offsets repeating across chunk boundaries; the whole block alternating
+    between two offsets (the history keeps an old third entry, so a re-walked
+    chunk never meets its speculative state); ll == 0 rows whose offset is
+    v0 - 1 (repcode 3); invalid rows with garbage bits scattered between
+    valid ones; no valid row (nseq 0); valid rows up to a count that is no
+    multiple of any chunk."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(rows)
+    valid = 1 << 22
+    cross = rng.choice([3, 5, 8, 13], rows, p=[0.4, 0.3, 0.2, 0.1]) | rng.integers(0, 2, rows) << 21
+    alternate = np.where(t % 2 == 0, 7, 9) | 1 << 21
+    alternate[0] = 5 | 1 << 21
+    off = rng.integers(2, 40, rows)
+    dec = rng.random(rows) < 0.4
+    for i in range(1, rows):  # ll == 0 rows copying the last offset minus one
+        if dec[i] and off[i - 1] > 1:
+            off[i] = off[i - 1] - 1
+    ll0 = off | np.where(dec, 0, rng.integers(0, 2, rows)) << 21
+    garbage = rng.integers(0, 1 << 22, rows)
+    mixed = rng.integers(1, 6, rows) | rng.integers(0, 2, rows) << 21
+    scattered = np.where(rng.random(rows) < 0.4, garbage, mixed | valid)
+    prefix = np.where(t < rows - rows // 3 - 5, mixed | valid, 0)
+    return np.stack([cross | valid, alternate | valid, ll0 | valid, scattered, garbage,
+                     prefix]).astype(np.int32)
+
+
+def _rep_hard_inputs():
+    return {"packed": rep_hard_rows(13, 2100)}
+
+
+case("rep_hard", "kernels", _rep_hard_inputs, _rep_port, _rep_ref)
+
+
 def _deposit_inputs(M):
     def make():
         rng = np.random.default_rng(M)
@@ -1260,13 +1295,7 @@ def _exec_inputs():
     cases = {f"w{W}": exec_inputs(W + 5, B, N, W, MS, L) for W in (1, 300)}
     # Literal rows straight from 4-stream symbol rows (lit_src).
     lits, nlit = cases["w1"][0], cases["w1"][1]
-    seg = np.maximum((nlit + 3) // 4, 1)
-    syms = np.zeros((4 * B, L // 4 + 8), np.uint8)
-    for b in range(B):
-        for s in range(4):
-            part = lits[b, s * seg[b] : min((s + 1) * seg[b], nlit[b])]
-            syms[4 * b + s, : len(part)] = part
-    return {"cases": cases, "N": N, "syms": syms}
+    return {"cases": cases, "N": N, "syms": stream_rows(lits, nlit, L // 4 + 8)}
 
 
 def _exec_run(fn, i, conv):
@@ -1276,7 +1305,7 @@ def _exec_run(fn, i, conv):
         o, n = np.asarray(o), np.asarray(n).astype(np.int64)
         out[f"{name}_len"] = n
         out[f"{name}_out"] = np.where(np.arange(i["N"])[None, :] < n[:, None], o, 0)
-    args = i["cases"]["w1"]
+    args = i["cases"][i.get("src_case", "w1")]
     o, n = fn(*(conv(a) for a in args), i["N"], 1, lit_src=(conv(i["syms"]), conv(args[1])))
     o, n = np.asarray(o), np.asarray(n).astype(np.int64)
     out["src_len"] = n
@@ -1299,6 +1328,84 @@ def _exec_ref(i):
 
 
 case("execute_sequences", "decode", _exec_inputs, _exec_port, _exec_ref)
+
+
+def exec_hard_inputs(seed: int, N: int, W: int):
+    """Valid sequence lists (lits, nlit, ll, ml, off, nseq, window) that are
+    hard for K8/K9, one block per pattern: long overlapping matches at off
+    1-3; a chain in which every match copies the match before it (depth
+    ~N / 6, so every doubling round is needed); matches that read the
+    window (W > 1; far matches into the output otherwise); no sequences,
+    tail literals only; no sequences and no literals; output filling N
+    exactly."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+
+    def run(draw, head=8):
+        """Sequences from draw(po) -> (ll, ml, off or off(match start))
+        until the output is near N; the first sequence puts `head` literals
+        down and copies them."""
+        ll, ml, off = [head], [head], [head]
+        po = 2 * head
+        while True:
+            a, m, o = draw(po)
+            if po + a + m > N - 64:
+                return ll, ml, off, po
+            ll.append(a)
+            ml.append(m)
+            off.append(o(po + a) if callable(o) else o)
+            po += a + m
+
+    ll, ml, off, _ = run(lambda po: (int(rng.integers(0, 4)), int(rng.integers(64, 4000)),
+                                     int(rng.integers(1, 4))))
+    blocks.append((ll, ml, off, sum(ll) + 9))
+    ll, ml, off, _ = run(lambda po: (1, 5, 6))
+    blocks.append((ll, ml, off, sum(ll) + 3))
+    if W > 1:
+        far = lambda ms: int(rng.integers(ms + 1, ms + W + 1))  # noqa: E731
+    else:
+        far = lambda ms: int(rng.integers(1, ms + 1))  # noqa: E731
+    ll, ml, off, _ = run(lambda po: (int(rng.integers(0, 5)), int(rng.integers(3, 40)), far))
+    blocks.append((ll, ml, off, sum(ll)))
+    blocks.append(([], [], [], N // 3))
+    blocks.append(([], [], [], 0))
+    ll, ml, off, po = run(lambda po: (int(rng.integers(0, 20)), int(rng.integers(3, 60)),
+                                      lambda ms: int(rng.integers(1, ms + W + 1))))
+    blocks.append((ll, ml, off, sum(ll) + N - po))
+    B, MS = len(blocks), max(len(x[0]) for x in blocks)
+    arr = {k: np.zeros((B, MS), np.int32) for k in ("ll", "ml", "off")}
+    nseq = np.zeros(B, np.int32)
+    nlit = np.zeros(B, np.int32)
+    for b, (ll, ml, off, nl) in enumerate(blocks):
+        nseq[b], nlit[b] = len(ll), nl
+        arr["ll"][b, : len(ll)], arr["ml"][b, : len(ll)], arr["off"][b, : len(ll)] = ll, ml, off
+    lits = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    window = rng.integers(0, 256, (B, max(W, 1)), dtype=np.uint8)
+    return lits, nlit, arr["ll"], arr["ml"], arr["off"], nseq, window
+
+
+def stream_rows(lits: np.ndarray, nlit: np.ndarray, segc: int) -> np.ndarray:
+    """Front-compacted literals as K6's 4-stream rows (B * 4, segc): stream
+    s of block b holds literals s * seg .. (s + 1) * seg, seg = ceil(nlit / 4)."""
+    B = lits.shape[0]
+    seg = np.maximum((nlit + 3) // 4, 1)
+    syms = np.zeros((4 * B, segc), np.uint8)
+    for b in range(B):
+        for s in range(4):
+            part = lits[b, s * seg[b] : min((s + 1) * seg[b], nlit[b])]
+            syms[4 * b + s, : len(part)] = part
+    return syms
+
+
+def _exec_hard_inputs():
+    N = 8192
+    cases = {f"hard_w{W}": exec_hard_inputs(W + 7, N, W) for W in (1, 4096)}
+    lits, nlit = cases["hard_w1"][0], cases["hard_w1"][1]
+    return {"cases": cases, "N": N, "syms": stream_rows(lits, nlit, N // 4 + 8),
+            "src_case": "hard_w1"}
+
+
+case("execute_sequences_hard", "decode", _exec_hard_inputs, _exec_port, _exec_ref)
 
 
 def _format_inputs():

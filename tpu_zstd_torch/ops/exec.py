@@ -3,7 +3,8 @@
 Counterpart of tpu_zstd/ops/pallas_exec.py `execute_sequences_pallas` (K8)
 and `execute_sequences_pallas_mb` (K9, the same executor with G blocks per
 TPU grid step); one CUDA kernel, csrc/exec.cu, computes both (one CTA per
-block). CPU tensors take the plain version, ops/decode.py
+block: a scan of the sequences, then tiles of the output resolved by pointer
+doubling in shared memory). CPU tensors take the plain version, ops/decode.py
 `execute_sequences_device`; CUDA tensors launch the kernel, or raise.
 """
 
@@ -16,7 +17,7 @@ from .decode import execute_sequences_device
 
 
 def execute_sequences(lits, nlit, ll, ml, off, nseq, window, out_size: int, win_size: int,
-                      lit_src=None):
+                      lit_src=None, stats=None):
     """Regenerate block contents from resolved sequences.
 
     lits (B, L) uint8 front-compacted literals, nlit (B,), ll/ml/off (B, MS)
@@ -24,9 +25,13 @@ def execute_sequences(lits, nlit, ll, ml, off, nseq, window, out_size: int, win_
     before each block; lit_src = (syms (B * 4, SEGC) uint8, regen (B,))
     reads the literals straight from K6's stream rows instead (lits is then
     ignored). Returns (out (B, out_size) uint8, out_len (B,) int32); bytes
-    past out_len are unspecified.
+    past out_len are unspecified. stats, a (B, 3) int32 CUDA tensor, takes
+    the kernel's counters per block: output tiles, pointer-doubling rounds
+    summed over the tiles, the most rounds of one tile.
     """
     if ll.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("execute_sequences: stats are counted by the CUDA kernel only")
         out, out_len = execute_sequences_device(lits, nlit, ll, ml, off, nseq, window,
                                                 out_size, win_size, lit_src)
         return out, out_len.to(torch.int32)
@@ -58,13 +63,21 @@ def execute_sequences(lits, nlit, ll, ml, off, nseq, window, out_size: int, win_
     else:
         lits = u8(lits, "lits")
         lits_ptr, L, syms_ptr, SEGC, regen_ptr = lits.data_ptr(), lits.shape[1], None, 0, None
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "execute_sequences stats")
+        if stats.shape != (B, 3):
+            raise ValueError(f"execute_sequences: stats {tuple(stats.shape)} for {B} blocks")
     out = torch.empty((B, out_size), dtype=torch.uint8, device=dev)
     out_len = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
+        # The kernel's sequence table: output, match and literal start and
+        # the clamped offset of each sequence, one more entry for the tail.
+        table = torch.empty((B, MS + 1, 4), dtype=torch.int32, device=dev)
         _kernels.launch(
             "exec", "tz_exec_sequences",
             lits_ptr or None, syms_ptr, regen_ptr, nlit.data_ptr(), ll.data_ptr(),
             ml.data_ptr(), off.data_ptr(), nseq.data_ptr(), window.data_ptr(), out.data_ptr(),
-            out_len.data_ptr(), B, L, SEGC, max(MS, 1), win_size, out_size,
+            out_len.data_ptr(), table.data_ptr(), None if stats is None else stats.data_ptr(),
+            B, L, SEGC, max(MS, 1), win_size, out_size,
         )
     return out, out_len

@@ -3,12 +3,13 @@
 Counterpart of tpu_zstd/ops/pallas_rep.py `rep_codes` (step `_rep_step`,
 reference scan `rep_codes_scan`); the kernel is csrc/rep.cu, the plain
 version a host loop over Python integers (a loop of tensor ops took seconds
-per 16 KB block on the CPU). Input per sequence row, int32:
-off | has_lit << 21 | valid << 22. Output: offset-base value (1..3 for a
-repcode, off + 3 otherwise), 0 on invalid rows. The
-3-entry history starts all zero with every entry unknown: blocks are
-compressed independently, so only offsets established inside the block may
-be named by repcode.
+per 16 KB block on the CPU). The kernel walks chunks of each block's rows in
+parallel from an unknown state and fixes them up exactly. Input per sequence
+row, int32: off | has_lit << 21 | valid << 22. Output: offset-base value
+(1..3 for a repcode, off + 3 otherwise), 0 on invalid rows. The 3-entry
+history starts all zero with every entry unknown: blocks are compressed
+independently, so only offsets established inside the block may be named by
+repcode.
 """
 
 from __future__ import annotations
@@ -57,15 +58,25 @@ def rep_codes_plain(packed: torch.Tensor) -> torch.Tensor:
     return torch.tensor(out, dtype=torch.int32, device=packed.device).reshape(S, rows)
 
 
-def rep_codes(packed: torch.Tensor) -> torch.Tensor:
+def rep_codes(packed: torch.Tensor, stats: torch.Tensor | None = None) -> torch.Tensor:
     """Offset-base values for (S, rows) packed per-block sequence lists.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. stats, an (S, 5) int32 CUDA tensor,
+    takes the kernel's counters per block: chunks, chunks whose re-walk
+    reached the chunk's end without meeting its earlier walk, fix-up rounds,
+    rows re-walked, tiles finished by one thread after 16 rounds."""
     if packed.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("rep_codes: stats are counted by the CUDA kernel only")
         return rep_codes_plain(packed)
     _kernels.check_cuda(packed, torch.int32, "rep_codes packed")
     S, rows = packed.shape
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "rep_codes stats")
+        if stats.shape != (S, 5):
+            raise ValueError(f"rep_codes: stats {tuple(stats.shape)} for {S} blocks")
     out = torch.empty((S, rows), dtype=torch.int32, device=packed.device)
     if packed.numel() == 0:
         return out
-    _kernels.launch("rep", "tz_rep_codes", packed.data_ptr(), out.data_ptr(), S, rows)
+    _kernels.launch("rep", "tz_rep_codes", packed.data_ptr(), out.data_ptr(),
+                    None if stats is None else stats.data_ptr(), S, rows)
     return out
