@@ -12,7 +12,15 @@ Phases, in order; any failure exits non-zero:
    live range: 1 <= t < nseq and the flush state; the decode kernels K6, K7
    and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
    decode plan stages for 16 seeded 128 KB decode_accel frames (made by the
-   port on the card); K8/K9 seeded valid sequences, literals front-compacted
+   port on the card), with K6's counters (lanes that met their speculative
+   walk, symbols before meeting, fix-up rounds); K6 also the hard streams of
+   tests/torch_cases.py `huf_hard_inputs` (256 codes of 8 bits, table_log 1
+   and 11, nsym on and off a chunk boundary, 1-symbol and empty streams, a
+   forward-filled 0 start record, a record 3 bits off; with records and with
+   K = 0); K1 also the hard rows of `roll_hard_rows` (int64 rows of widths
+   2, 3 and 11 with 10^6 rows and of width 16384, byte rows of widths 110600
+   and 160, int32 rows of odd width; shifts 0, W, -1, +-3W and beyond), with
+   their times and byte bounds; K8/K9 seeded valid sequences, literals front-compacted
    or read from 4-stream rows, without and with a 4 KB window, and the hard
    lists of tests/torch_cases.py `exec_hard_inputs` (overlapping matches at
    off 1-3, a chain of matches each copying the one before, window reads, no
@@ -77,9 +85,10 @@ Phases, in order; any failure exits non-zero:
    kernel its time by CUDA events at every captured shape, its bound and its
    plain version's time (K12 also `torch.sort` + `torch.gather`, its
    library call; K13 beside the plain route's `find_matches`, K11 beside the
-   deposit tree, both in phase 4d); K4's and K8/K9's counters on the main
-   paths' inputs (chunks that met their speculative walk, fix-up rounds;
-   pointer-doubling rounds a tile).
+   deposit tree, both in phase 4d), and its bound summed over its launches
+   in one batch (`bound_ms_per_batch`); K4's, K6's and K8/K9's counters on
+   the main paths' inputs (chunks or lanes that met their speculative walk,
+   fix-up rounds; pointer-doubling rounds a tile).
 
 Stock libzstd (`zstandard`) decodes the frames where it is installed; where
 it is not, the run says so once and golden identity stands in for it.
@@ -147,6 +156,31 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, kernel: str):
+    """Mean device milliseconds a call of the kernels whose name contains
+    `kernel`, from a torch.profiler (CUPTI) trace of `iters` calls after one
+    warm-up call: the kernel's own time, without the host's launch cost that
+    back-to-back CUDA-event timing of a short kernel measures. None if the
+    trace holds no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / iters / 1e3 if us else None
+
+
+def _fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def _sha(b: bytes) -> str:
@@ -248,6 +282,10 @@ def main() -> int:
     # What plain_ms times: K4's plain version walks Python integers on the
     # host (copy to the host included), the others run torch ops on the card.
     PLAIN_KIND = {"rep": "host loop over Python integers"}
+    # The kernels whose device time (torch.profiler) the table adds beside the
+    # CUDA-event time: their short launches run back to back no faster than
+    # the host issues them.
+    KERNEL_SYMBOL = {"roll": "roll_kernel", "decode_huf": "decode_huffman_kernel"}
     max_err = {k: 0 for k in K}
 
     def chain_live(out, nseq):
@@ -291,12 +329,31 @@ def main() -> int:
     def kernel_stats(name, args, kw):
         """The counters K4 (per block: chunks, chunks whose re-walk met no
         earlier walk, fix-up rounds, rows re-walked, tiles one thread
-        finished) or K8/K9 (per block: tiles, doubling rounds, most rounds in
-        a tile) keep when handed a stats tensor."""
-        rows_s = args[0].shape[0] if name == "rep" else args[2].shape[0]
-        st = torch.zeros((rows_s, 5 if name == "rep" else 3), dtype=torch.int32, device=dev)
+        finished), K8/K9 (per block: tiles, doubling rounds, most rounds in
+        a tile) or K6 (per stream chunk: lanes that met their speculative
+        walk, symbols they re-walked before meeting, lanes that never met,
+        fix-up rounds, symbols re-walked in all rounds, symbols decoded in
+        series past the last lane) keep when handed a stats tensor."""
+        if name == "rep":
+            shape = (args[0].shape[0], 5)
+        elif name == "exec":
+            shape = (args[2].shape[0], 3)
+        else:
+            shape = (args[0].shape[0] * args[6], decode_lanes.HUF_STATS)
+        st = torch.zeros(shape, dtype=torch.int32, device=dev)
         K[name][0](*args, **kw, stats=st)
         return st.cpu()
+
+    def huf_counters(args, st):
+        """K6's counters summed over the chunks with symbols."""
+        st = st.to(torch.int64)
+        nsym_a, stride_a, nc_a = args[4].to(torch.int64).cpu(), args[5], args[6]
+        chunks = int(torch.clamp((nsym_a + stride_a - 1) // stride_a, 0, nc_a).sum())
+        return {"chunks": chunks, "lanes_met": int(st[:, 0].sum()),
+                "symbols_before_meeting": int(st[:, 1].sum()),
+                "lanes_unmet": int(st[:, 2].sum()), "fixup_rounds_max": int(st[:, 3].max()),
+                "fixup_rounds": int(st[:, 3].sum()), "symbols_rewalked": int(st[:, 4].sum()),
+                "tail_symbols": int(st[:, 5].sum())}
 
     # --- 2. kernels vs plain, seeded inputs ---------------------------------------------
     rng = np.random.default_rng(1234)
@@ -309,6 +366,23 @@ def main() -> int:
                   cu(rng.integers(0, N, B))), "u8 (128, 131072)")
     hold("roll", (cu(rng.integers(-2**31, 2**31, (B, 32768), dtype=np.int32)),
                   cu(rng.integers(0, 32768, B))), "i32 (128, 32768)")
+    # K1's hard inputs (tests/torch_cases.py roll_hard_rows): int64 word rows
+    # of widths 2, 3 and 11 with 10^6 rows and of width 16384, byte rows
+    # whose width is no multiple of 16 (110600) or is one (160), int32 rows
+    # of odd width; shifts 0, W, -1, +-3W, W - 1, 1, -W - 5, 2^40 + 7, then
+    # drawn from [-3W, 3W].
+    for k, (dt, R, W) in enumerate(((np.int64, 10**6, 2), (np.int64, 10**6, 3),
+                                    (np.int64, 10**6, 11), (np.int64, 256, 16384),
+                                    (np.uint8, B, 110600), (np.uint8, 4096, 160),
+                                    (np.int32, B, 32767))):
+        x, s = (cu(a) for a in torch_cases.roll_hard_rows(k, dt, R, W))
+        hold("roll", (x, s), f"hard {x.dtype} ({R}, {W})")
+        nb = 2 * x.numel() * x.element_size() + s.numel() * 8
+        print(f"time [{card}]: K1 hard {x.dtype} ({R}, {W}) "
+              f"{_time_ms(lambda: roll.roll_rows(x, s), 20):.4f} ms, on the device "
+              f"{_fmt_ms(_device_ms(lambda: roll.roll_rows(x, s), 20, KERNEL_SYMBOL['roll']))}, "
+              f"bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del x, s
     for W, out_len in ((2048, N), (512, 32768), (512, 16384)):
         off = rng.integers(0, W, (B, 64))
         cnt = rng.integers(0, W - off + 1)
@@ -439,6 +513,24 @@ def main() -> int:
     for name in ("decode_huf", "decode_seq"):
         for key, (args, kw, _) in cap_s[name].items():
             hold(name, args, f"seeded accel {key[0][0]}", kw)
+            if name == "decode_huf":
+                print(f"phase 2: K6 seeded accel {key[0][0]} counters: "
+                      f"{huf_counters(args, kernel_stats(name, args, kw))}")
+    # K6's hard inputs (tests/torch_cases.py huf_hard_inputs, 8 copies of its
+    # 5 blocks): 256 codes of 8 bits, table_log 1 and 11, nsym no multiple of
+    # the stride and exactly on a chunk boundary, 1-symbol and empty streams,
+    # a last chunk whose start record is forward-filled 0, a record 3 bits
+    # off; and the same streams with no records (K = 0).
+    hv = torch_cases.huf_hard_inputs(5, 1024, 8)
+    for label, lck in (("records", hv["lck"]), ("K = 0", hv["lck"][:, :0])):
+        hargs = (cu(hv["lstreams"]), cu(hv["ltbits"]), cu(hv["dtab"]), cu(hv["tlog"]),
+                 cu(hv["lnsym"]), hv["CL"], hv["NCL"], cu(np.ascontiguousarray(lck)))
+        hold("decode_huf", hargs, f"hard streams, {label}")
+        print(f"phase 2: K6 hard streams ({hargs[0].shape[0]} x {hv['NCL']} chunks), {label}, "
+              f"counters: {huf_counters(hargs, kernel_stats('decode_huf', hargs, {}))}")
+        run_h = lambda: decode_lanes.decode_huffman_lanes(*hargs)  # noqa: E731
+        print(f"time [{card}]: K6 hard streams, {label}: {_time_ms(run_h, 10):.4f} ms, on the "
+              f"device {_fmt_ms(_device_ms(run_h, 10, KERNEL_SYMBOL['decode_huf']))}")
 
     # K8/K9 on seeded valid sequences at the main path's shape (128 blocks of
     # 128 KB): literals front-compacted and from 4-stream rows, no window;
@@ -1033,7 +1125,7 @@ def main() -> int:
     plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1, "opt": 1, "match": 1}
     rows_out = []
     for name, (kern, plain, source, replaces) in K.items():
-        per_batch = 0.0
+        per_batch = bound_batch = dev_batch = 0.0
         row = None
         counters = {}
         for key, (args, kw, n_calls) in sorted(
@@ -1048,12 +1140,21 @@ def main() -> int:
             plain_ms = _time_ms(lambda: plain(*args, **kw), plain_iters.get(name, 3))
             b_ms, b_by = bound(name, args, kw, out)
             per_batch += n_calls * ms
+            bound_batch += n_calls * b_ms
             shape = shape_of(name, key)
-            print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
-            if name in ("rep", "exec"):  # the redesigned kernels' own counters
+            dev_ms = None
+            if name in KERNEL_SYMBOL:
+                dev_ms = _device_ms(lambda: kern(*args, **kw), 20, KERNEL_SYMBOL[name])
+                dev_batch = None if dev_ms is None or dev_batch is None else (
+                    dev_batch + n_calls * dev_ms)
+            print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms"
+                  + (f" (on the device {_fmt_ms(dev_ms)})" if name in KERNEL_SYMBOL else "")
+                  + f", bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
+            if name in ("rep", "exec", "decode_huf"):  # the redesigned kernels' counters
                 st = kernel_stats(name, args, kw).to(torch.int64)
-                if name == "rep":
+                if name == "decode_huf":
+                    got = huf_counters(args, st)
+                elif name == "rep":
                     got = {"chunks": int(st[:, 0].sum()), "chunks_unmet": int(st[:, 1].sum()),
                            "fixup_rounds_max": int(st[:, 2].max()),
                            "rows_rewalked": int(st[:, 3].sum()),
@@ -1071,6 +1172,7 @@ def main() -> int:
                     "launches": all_launches[name], "max_abs_err": max_err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None, "shape": shape,
+                    **({"device_ms": dev_ms} if name in KERNEL_SYMBOL else {}),
                     "launches_slice1": launches1.get(name, 0),
                     "launches_level19": launches19.get(name, 0),
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
@@ -1079,11 +1181,15 @@ def main() -> int:
                 if name == "sort":
                     row["library_ms"] = _time_ms(lambda: sort_library(*args), 3)
         row["ms_per_batch"] = per_batch
+        row["bound_ms_per_batch"] = bound_batch
+        if name in KERNEL_SYMBOL:
+            row["device_ms_per_batch"] = dev_batch
         if counters:
             row["counters_per_batch"] = counters
         rows_out.append(row)
         print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over "
-              f"{all_launches[name]} launches")
+              f"{all_launches[name]} launches, bound {bound_batch:.4f} ms per batch"
+              + (f", on the device {_fmt_ms(dev_batch)}" if name in KERNEL_SYMBOL else ""))
     k8 = next(r for r in rows_out if r["name"] == "exec")
     k8["name"] = "exec_k8"
     rows_out.append({**k8, "name": "exec_k9", "replaces": K9_REPLACES})

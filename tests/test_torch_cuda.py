@@ -37,6 +37,9 @@ def test_cuda_kernels_match_plain():
         x = _t(rng.integers(0, 120, (7, 3000)).astype(dtype)).to(dev)
         s = _t(rng.integers(0, 3000, 7)).to(dev)
         assert torch.equal(roll.roll_rows(x, s), roll.roll_rows_plain(x, s))
+    for k, (dtype, rows, width) in enumerate(torch_cases.ROLL_HARD):  # K1's hard rows
+        x, s = (_t(a).to(dev) for a in torch_cases.roll_hard_rows(k, dtype, rows, width))
+        assert torch.equal(roll.roll_rows(x, s), roll.roll_rows_plain(x, s)), (dtype, width)
     W = 512
     off = rng.integers(0, W, (3, 8))
     cnt = rng.integers(0, W - off + 1)
@@ -116,6 +119,12 @@ def _check_decode_kernels(dev):
     got = decode_lanes.decode_huffman_lanes(*args, i["CL"], i["NCL"], lck)
     want = decode.decode_huffman_device(*args, i["CL"], i["NCL"], lck)
     assert torch.equal(_live(got, args[4]), _live(want, args[4]))
+    for name, v in torch_cases._huf_hard_inputs().items():  # K6's hard streams
+        hargs = [_t(v[k]).to(dev) for k in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")]
+        hck = _t(v["lck"]).to(dev)
+        got = decode_lanes.decode_huffman_lanes(*hargs, v["CL"], v["NCL"], hck)
+        want = decode.decode_huffman_device(*hargs, v["CL"], v["NCL"], hck)
+        assert torch.equal(_live(got, hargs[4]), _live(want, hargs[4])), name
     tables = decode.SeqTables(*(_t(i[k]).to(dev) for k in ("sym", "nb", "ns", "logs")))
     rep0 = torch.tensor([[1, 4, 8]] * len(i["nseq"]), dtype=torch.int32, device=dev)
     sargs = (_t(i["streams"]).to(dev), _t(i["tbits"]).to(dev), tables, _t(i["nseq"]).to(dev),

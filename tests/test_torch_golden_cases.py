@@ -41,8 +41,9 @@ import zstandard
 
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
-    "kernels": ["roll_u8", "roll_i32", "concat", "greedy", "rep", "rep_hard",
+    "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "greedy", "rep", "rep_hard",
                 "decode_sequences_serial", "decode_sequences_chunked", "decode_huffman",
+                "decode_huffman_hard",
                 "execute_sequences", "execute_sequences_hard",
                 "opt_steps_mm3_cap64", "opt_steps_mm4_cap16", "sort_rows_1024", "sort_rows_2048",
                 "sort_rows_8192", "match_windows_d2_w2", "match_windows_d8_w8",

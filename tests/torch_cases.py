@@ -130,6 +130,65 @@ case("roll_u8", "kernels", _roll_inputs(np.uint8, 4096), _roll_port, _roll_ref)
 case("roll_i32", "kernels", _roll_inputs(np.int32, 2048), _roll_port, _roll_ref)
 
 
+def roll_hard_shifts(rng, rows: int, width: int) -> np.ndarray:
+    """Per-row shifts for K1: 0, W, -1, 3W, -3W, W - 1, 1, -W - 5 and
+    2^40 + 7 first, then shifts drawn from [-3W, 3W]."""
+    s = rng.integers(-3 * width, 3 * width + 1, rows)
+    fixed = [0, width, -1, 3 * width, -3 * width, width - 1, 1, -width - 5, (1 << 40) + 7]
+    s[: min(rows, len(fixed))] = fixed[:rows]
+    return s.astype(np.int64)
+
+
+def roll_hard_rows(seed: int, dtype, rows: int, width: int):
+    """(x, shift) for K1: rows of `dtype` (int64 rows carry u32 values, as
+    the deposit trees' word rows do), shifts from `roll_hard_shifts`."""
+    rng = np.random.default_rng(seed)
+    if np.dtype(dtype) == np.int64:
+        x = rng.integers(0, 1 << 32, (rows, width), dtype=np.int64)
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, (rows, width), dtype=dtype, endpoint=True)
+    return x, roll_hard_shifts(rng, rows, width)
+
+
+# K1's hard shapes: int64 word rows as narrow as the deposit trees' (2, 3,
+# 11) and as wide (16384); byte rows whose width is no multiple of 16 (the
+# pipeline's literal rows) or is one; int32 rows of odd width.
+ROLL_HARD = ((np.int64, 37, 2), (np.int64, 29, 3), (np.int64, 23, 11), (np.int64, 3, 16384),
+             (np.uint8, 3, 110600), (np.uint8, 11, 160), (np.uint8, 9, 1), (np.uint8, 13, 21),
+             (np.int32, 7, 1001))
+
+
+def _roll_hard_inputs():
+    return {f"x{k}": v for k, (dt, r, w) in enumerate(ROLL_HARD)
+            for v in [roll_hard_rows(k, dt, r, w)]}
+
+
+def _roll_hard_port(i):
+    from tpu_zstd_torch.ops import roll
+
+    return {k: roll.roll_rows_plain(_t(x), _t(s)) for k, (x, s) in i.items()}
+
+
+def _roll_hard_ref(i):
+    """The JAX roll takes shifts in [0, W]: it gets each shift mod W and the
+    int64 rows as the u32 words they carry."""
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import bitpack
+
+    res = {}
+    for k, (x, s) in i.items():
+        W = x.shape[1]
+        xj = x.astype(np.uint32) if x.dtype == np.int64 else x
+        res[k] = np.asarray(bitpack.dynroll(jnp.asarray(xj), jnp.asarray((s % W)[:, None],
+                                                                         jnp.int32), W))
+    return res
+
+
+case("roll_hard", "kernels", _roll_hard_inputs, _roll_hard_port, _roll_hard_ref)
+
+
 def _concat_inputs():
     rng = np.random.default_rng(384)
     B, NW, W = 2, 4, 256
@@ -1260,6 +1319,141 @@ def _huf_ref(i):
 
 
 case("decode_huffman", "decode", _staged("accel"), _huf_port, _huf_ref)
+
+
+def _huf_code(rng, kind: str):
+    """Code lengths (256,) and table_log of a complete prefix code: "flat8"
+    256 symbols of 8 bits, "one" 2 symbols of 1 bit, "skew11" a random tree
+    of depth 11 (short codes beside 11-bit ones)."""
+    if kind == "flat8":
+        return np.full(256, 8), 8
+    if kind == "one":
+        ln = np.zeros(256, np.int64)
+        ln[[7, 200]] = 1
+        return ln, 1
+    leaves = [0]  # split random leaves of depth < 11 until 120 leaves, one at 11
+    while len(leaves) < 120 or max(leaves) < 11:
+        cand = [i for i, d in enumerate(leaves) if d < 11]
+        i = cand[-1] if len(leaves) >= 110 else cand[int(rng.integers(0, len(cand)))]
+        d = leaves.pop(i)
+        leaves += [d + 1, d + 1]
+    ln = np.zeros(256, np.int64)
+    ln[rng.permutation(256)[: len(leaves)]] = leaves
+    return ln, 11
+
+
+def _huf_table(ln, tl):
+    """Canonical codes of lengths ln and the packed decode table
+    (sym << 4 | nb_bits at every index the code prefixes)."""
+    code = np.zeros(256, np.int64)
+    dt = np.zeros(2048, np.int32)
+    nxt = 0
+    for nb in range(1, tl + 1):
+        for sym in np.flatnonzero(ln == nb):
+            code[sym] = nxt
+            lo = nxt << (tl - nb)
+            dt[lo : lo + (1 << (tl - nb))] = sym << 4 | nb
+            nxt += 1
+        nxt <<= 1
+    return code, dt
+
+
+def _huf_stream(syms, code, ln):
+    """Backward stream of syms: symbol 0's code in the top bits, its MSB at
+    bit T - 1; the last symbol's code ends at bit 0. Returns (bytes, T,
+    cursor before each symbol)."""
+    nbits = ln[syms]
+    T = int(nbits.sum())
+    before = T - np.concatenate([[0], np.cumsum(nbits)[:-1]])
+    bits = np.zeros(T + 8, np.uint8)
+    for j, (sym, top) in enumerate(zip(syms, before)):
+        nb = int(nbits[j])
+        c = int(code[sym])
+        bits[top - nb : top] = [(c >> k) & 1 for k in range(nb)]
+    return np.packbits(bits, bitorder="little").tobytes()[: (T + 7) // 8], T, before
+
+
+def huf_hard_inputs(seed: int, stride: int = 1024, reps: int = 1):
+    """K6's hard inputs, staged as the decode plan stages them (keys as
+    `_staged`): per block a table and 4 streams, repeated `reps` times.
+    Block tables: 256 codes of 8 bits (lane starts off the 8-bit grid never
+    meet); table_log 1; table_log 11 (lengths 1-11). Streams: nsym no
+    multiple of the stride, nsym ending exactly on a chunk boundary, 1
+    symbol, empty, the last chunk's start record forward-filled with 0, a
+    record 3 bits off, records past a stream's chunks forward-filled with
+    0."""
+    rng = np.random.default_rng(seed)
+    plan = [("flat8", [4 * stride + 333, 3 * stride, 1, stride - 1]),
+            ("one", [2 * stride + 5, stride, 17, 1]),
+            ("skew11", [5 * stride + 999, 4 * stride, 2, 700]),
+            ("skew11", [3 * stride + 40, 2 * stride + 1, 6 * stride, 0]),
+            ("flat8", [stride - 3, 5, 0, 1])] * reps
+    B = len(plan)
+    streams, recs, tabs = [], [], []
+    for b, (kind, ns) in enumerate(plan):
+        ln, tl = _huf_code(rng, kind)
+        code, dt = _huf_table(ln, tl)
+        tabs.append((dt, tl))
+        live = np.flatnonzero(ln)
+        p = rng.random(len(live)) ** 3
+        for s, n in enumerate(ns):
+            syms = rng.choice(live, n, p=p / p.sum())
+            data, T, before = _huf_stream(syms, code, ln)
+            ck = before[stride::stride][: max(-(-n // stride) - 1, 0)].astype(np.int64)
+            streams.append((data, T, n))
+            recs.append(ck)
+    NC = max(-(-n // stride) for _, _, n in streams)
+    K = NC - 1
+    SW = max(64, 1 << (max(len(d) for d, _, _ in streams) - 1).bit_length())
+    st = {"lstreams": np.zeros((4 * B, SW), np.uint8), "ltbits": np.zeros(4 * B, np.int32),
+          "lnsym": np.zeros(4 * B, np.int32), "dtab": np.zeros((B, 2048), np.int32),
+          "tlog": np.zeros(B, np.int32), "lck": np.zeros((4 * B, K), np.int32),
+          "CL": stride, "NCL": NC}
+    for b, (dt, tl) in enumerate(tabs):
+        st["dtab"][b], st["tlog"][b] = dt, tl
+    for r, ((data, T, n), ck) in enumerate(zip(streams, recs)):
+        st["lstreams"][r, : len(data)] = np.frombuffer(data, np.uint8)
+        st["ltbits"][r], st["lnsym"][r] = T, n
+        st["lck"][r, : len(ck)] = ck
+    st["lck"][12, -(-int(st["lnsym"][12]) // stride) - 2] = 0  # last chunk starts at 0
+    st["lck"][13, 0] += 3  # a record 3 bits off: chunk 1 decodes from there
+    return st
+
+
+def _huf_hard_inputs():
+    """The hard streams with their records, and again with none (K = 0)."""
+    st = huf_hard_inputs(5, 1024)
+    norec = {**st, "lck": np.zeros((st["lck"].shape[0], 0), np.int32)}
+    return {"h": st, "norec": norec}
+
+
+def _huf_hard_port(i):
+    from tpu_zstd_torch.ops import decode
+
+    out = {}
+    for k, v in i.items():
+        syms = decode.decode_huffman_device(
+            *(_t(v[n]) for n in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")), v["CL"],
+            v["NCL"], _t(v["lck"]))
+        out[k] = _huf_mask(v, syms)
+    return out
+
+
+def _huf_hard_ref(i):
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import decode_jax
+
+    out = {}
+    for k, v in i.items():
+        syms = decode_jax.decode_huffman_device(
+            *(jnp.asarray(v[n]) for n in ("lstreams", "ltbits", "dtab", "tlog", "lnsym")),
+            v["CL"], v["NCL"], jnp.asarray(v["lck"]))
+        out[k] = _huf_mask(v, syms)
+    return out
+
+
+case("decode_huffman_hard", "decode", _huf_hard_inputs, _huf_hard_port, _huf_hard_ref)
 
 
 def exec_inputs(seed, B, N, W, MS, L):

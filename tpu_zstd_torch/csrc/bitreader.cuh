@@ -1,8 +1,8 @@
-// Backward bitstream reader for the decode kernels (K6, K7): a 64-bit
+// Backward bitstream reader for the sequence decode kernel (K7): a 64-bit
 // container over the stream's bytes in device memory (RFC 8878 §4.1: fields
 // are read from the stream's end toward its start). Bits outside
-// [0, 8 * nbytes) read as zeros, so a Huffman peek near the start is the
-// zero-padded lookup libzstd does.
+// [0, 8 * nbytes) read as zeros, so a peek near the start is the
+// zero-padded read libzstd does.
 #pragma once
 #include <stdint.h>
 

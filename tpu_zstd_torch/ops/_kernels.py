@@ -45,7 +45,7 @@ SIGNATURES = {
     "tz_greedy_segments": (P, P, I64, I32, P),
     "tz_rep_codes": (P, P, P, I32, I32, P),
     "tz_state_chain3": (P,) * 11 + (I32, I32, I32, P),
-    "tz_decode_huffman": (P,) * 7 + (I32,) * 6 + (P,),
+    "tz_decode_huffman": (P,) * 8 + (I32,) * 5 + (P,),
     "tz_decode_sequences": (P,) * 12 + (I32,) * 7 + (P,),
     "tz_exec_sequences": (P,) * 13 + (I32,) * 6 + (P,),
     "tz_opt_steps": (P, P, P, P, I64, I32, I32, I32, P),

@@ -4,11 +4,13 @@
 Counterparts of tpu_zstd/ops/pallas_decode.py `decode_huffman_lanes` (K6,
 kernel csrc/decode_huf.cu) and `decode_sequences_lanes` (K7, kernel
 csrc/decode_seq.cu). The TPU kernels put one checkpointed chunk per lane
-and stage per-chunk word slices of the stream; here a chunk is one CUDA
-thread that reads its stream's own bytes in device memory by cursor, so no
-slice is staged and no chunk has an end bound (the TPU literal staging read
-forward-filled checkpoint records as end bounds and mis-decoded about 0.3 %
-of blocks).
+and stage per-chunk word slices of the stream, taking the next record as a
+chunk's end bound (forward-filled records made that bound wrong for about
+0.3 % of blocks). Here no record is ever a chunk's end: K7 runs one thread
+a chunk that reads its stream's own bytes in device memory by cursor; K6
+runs one warp a chunk that stages the chunk's stream words in shared memory
+and splits the chunk into self-synchronising sub-spans with an exact fix-up
+(the end record only places the lanes' starts).
 
 CPU tensors take the plain versions in ops/decode.py; CUDA tensors launch
 the kernels, or raise.
@@ -21,7 +23,8 @@ import torch
 from . import _kernels
 from .decode import SeqTables, TSIZE_MAX, decode_huffman_device, decode_sequences_chunks
 
-MAX_THREADS = 256  # threads per CTA; a CTA loops when a block has more rows
+MAX_THREADS = 256  # K7's threads per CTA; a CTA loops when a block has more rows
+HUF_STATS = 6  # K6's counters per chunk
 
 
 def _i32(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -31,7 +34,8 @@ def _i32(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def decode_huffman_lanes(streams, total_bits, dtable, table_log, nsym, stride: int,
-                         num_chunks: int, ck_bits) -> torch.Tensor:
+                         num_chunks: int, ck_bits, stats: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """4-stream Huffman literal decode, `stride` symbols per chunk (K6).
 
     Arguments and result as ops/decode.py `decode_huffman_device`: streams
@@ -39,8 +43,15 @@ def decode_huffman_lanes(streams, total_bits, dtable, table_log, nsym, stride: i
     symbol << 4 | nb_bits, table_log (B,) <= 11 (the kernel clamps it
     there), ck_bits (B * 4, K).
     Returns (B * 4, num_chunks * stride) uint8, zero past nsym.
+    stats, a (B * 4 * num_chunks, 6) int32 CUDA tensor (row-major over
+    (stream, chunk)), receives per chunk: lanes whose true walk met their
+    speculative walk, the symbols those lanes re-walked before meeting,
+    lanes that never met, fix-up rounds, symbols re-walked in all rounds,
+    symbols decoded in series past the last lane.
     """
     if streams.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("decode_huffman_lanes: stats are counted by the CUDA kernel only")
         return decode_huffman_device(streams, total_bits, dtable, table_log, nsym, stride,
                                      num_chunks, ck_bits)
     R0, SW = streams.shape
@@ -55,12 +66,18 @@ def decode_huffman_lanes(streams, total_bits, dtable, table_log, nsym, stride: i
     args = [_i32(x, f"decode_huffman_lanes {n}") for x, n in (
         (total_bits, "total_bits"), (dtable, "dtable"), (table_log, "table_log"),
         (nsym, "nsym"), (ck, "ck_bits"))]
-    out = torch.zeros((R0, num_chunks * stride), dtype=torch.uint8, device=streams.device)
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "decode_huffman_lanes stats")
+        if stats.shape != (R0 * num_chunks, HUF_STATS):
+            raise ValueError(f"decode_huffman_lanes: stats {tuple(stats.shape)} for "
+                             f"{R0 * num_chunks} chunks")
+    # The kernel writes every byte: symbols, then zeros past nsym.
+    out = torch.empty((R0, num_chunks * stride), dtype=torch.uint8, device=streams.device)
     if B:
         _kernels.launch(
             "decode_huf", "tz_decode_huffman",
             streams.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(),
-            B, SW, ck.shape[1], stride, num_chunks, min(4 * num_chunks, MAX_THREADS),
+            None if stats is None else stats.data_ptr(), B, SW, ck.shape[1], stride, num_chunks,
         )
     return out
 
