@@ -10,10 +10,18 @@ Phases, in order; any failure exits non-zero:
 2. Each kernel (K1-K13) against its plain PyTorch version on the card, at the
    main paths' shapes (B = 128) on seeded inputs: exact equality (K5 on its
    live range: 1 <= t < nseq and the flush state; the decode kernels K6, K7
-   and K8/K9 up to nsym, nseq and out_len). K6 and K7 take the inputs the
-   decode plan stages for 16 seeded 128 KB decode_accel frames (made by the
-   port on the card), with K6's counters (lanes that met their speculative
-   walk, symbols before meeting, fix-up rounds); K6 also the hard streams of
+   and K8/K9 up to nsym, nseq and out_len, K7's final rep triples whole). K6
+   and K7 take the inputs the decode plan stages for 16 seeded 128 KB
+   decode_accel frames (made by the port on the card), with K6's counters
+   (lanes that met their speculative walk, symbols before meeting, fix-up
+   rounds) and K7's (sequences a chunk walked, stream words read outside
+   the staged words); K7 also the hard inputs of tests/torch_cases.py
+   `seq_hard_inputs` (16 + 31 + 16 extra bits a sequence, offsets past
+   2^31, FSE tables of table_log 9/8/9, RLE tables, nseq 1 and 3 strides, a
+   stream that is its end-marker byte, chunks without records, a record past
+   its stream's end, max_seqs below nseq, a 71 KB serial stream, a block
+   without sequences) and `seq_garbage_inputs` (scrambled records), with
+   their times; K6 also the hard streams of
    tests/torch_cases.py `huf_hard_inputs` (256 codes of 8 bits, table_log 1
    and 11, nsym on and off a chunk boundary, 1-symbol and empty streams, a
    forward-filled 0 start record, a record 3 bits off; with records and with
@@ -31,9 +39,11 @@ Phases, in order; any failure exits non-zero:
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
    rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
    per 16 rows); K12 on unique keys spanning negative values with 0-3
-   payloads; K13 on low-entropy windows at 2 x 1024 and at the three level
-   shapes (2048 x 8192); K11 on the reference test's fields, its sparse case
-   and fields running past the padded width.
+   payloads, and past one CTA's width (the tiled network) at 32768 and 65536
+   columns, timed at 16M elements beside torch.sort + torch.gather; K13 on
+   low-entropy windows at 2 x 1024, at the three level shapes (2048 x 8192)
+   and at 65536 (2 and 256 windows, timed); K11 on the reference test's
+   fields, its sparse case and fields running past the padded width.
 3. The first slice's path at full width: the 16 MiB bench batch
    (128 x 128 KB) through `compress_blocks_staged_many` at SLICE_CONFIG, the
    launch counts set to 0 just before and read just after; every block's
@@ -72,7 +82,10 @@ Phases, in order; any failure exits non-zero:
    and read just after (one K13 launch a call, nothing else), equal to the
    plain route at every live position and 0 at dead ones; K13 against its
    plain version and K12 against its plain version on the inputs K13
-   received (the window keys and their suffix words). Then K11 on the
+   received (the window keys and their suffix words). The same at hash_log
+   14 and 64 KB windows (K13's tiled path, one launch) on level 3's inputs,
+   against the sort route at those knobs; and two_band on the fused route,
+   which returns the fused (ml, off). Then K11 on the
    DEFAULT_CONFIG batch's sequence deposits (the calls that take the deposit
    tree; offsets the exclusive cumsum, M padded to 128 with zero-length
    fields at the last offset): its first num_words words equal the tree's,
@@ -86,9 +99,11 @@ Phases, in order; any failure exits non-zero:
    plain version's time (K12 also `torch.sort` + `torch.gather`, its
    library call; K13 beside the plain route's `find_matches`, K11 beside the
    deposit tree, both in phase 4d), and its bound summed over its launches
-   in one batch (`bound_ms_per_batch`); K4's, K6's and K8/K9's counters on
-   the main paths' inputs (chunks or lanes that met their speculative walk,
-   fix-up rounds; pointer-doubling rounds a tile).
+   in one batch (`bound_ms_per_batch`); K4's, K6's, K7's and K8/K9's
+   counters on the main paths' inputs (chunks or lanes that met their
+   speculative walk, fix-up rounds; sequences a chunk walked and words not
+   staged; pointer-doubling rounds a tile); K1's, K6's and K7's device time
+   (torch.profiler) beside their CUDA-event time.
 
 Stock libzstd (`zstandard`) decodes the frames where it is installed; where
 it is not, the run says so once and golden identity stands in for it.
@@ -242,6 +257,12 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line:
             print("ptxas:", line.split("ptxas info    :")[-1].strip())
 
+    def k7_plain(*a, rep_fin=False):
+        """K7's plain version, with its final rep triple as the kernel gives it."""
+        ll, ml, off, rows = decode.decode_sequences_chunks(*a)
+        return (ll, ml, off, decode.final_rep(rows, a[3], a[8], a[9])) if rep_fin else (
+            ll, ml, off)
+
     # Kernel table: name -> (wrapper, plain, source, TPU kernel it replaces).
     K = {
         "roll": (roll.roll_rows, roll.roll_rows_plain, "tpu_zstd_torch/csrc/roll.cu",
@@ -257,8 +278,7 @@ def main() -> int:
         "decode_huf": (decode_lanes.decode_huffman_lanes, decode.decode_huffman_device,
                        "tpu_zstd_torch/csrc/decode_huf.cu",
                        "tpu_zstd/ops/pallas_decode.py:112 decode_huffman_lanes"),
-        "decode_seq": (decode_lanes.decode_sequences_lanes,
-                       lambda *a: decode.decode_sequences_chunks(*a)[:3],
+        "decode_seq": (decode_lanes.decode_sequences_lanes, k7_plain,
                        "tpu_zstd_torch/csrc/decode_seq.cu",
                        "tpu_zstd/ops/pallas_decode.py:391 decode_sequences_lanes"),
         "exec": (execmod.execute_sequences,
@@ -285,7 +305,8 @@ def main() -> int:
     # The kernels whose device time (torch.profiler) the table adds beside the
     # CUDA-event time: their short launches run back to back no faster than
     # the host issues them.
-    KERNEL_SYMBOL = {"roll": "roll_kernel", "decode_huf": "decode_huffman_kernel"}
+    KERNEL_SYMBOL = {"roll": "roll_kernel", "decode_huf": "decode_huffman_kernel",
+                     "decode_seq": "decode_sequences_kernel"}
     max_err = {k: 0 for k in K}
 
     def chain_live(out, nseq):
@@ -302,6 +323,8 @@ def main() -> int:
 
     def hold(name: str, args: tuple, label: str, kw=None) -> None:
         kw = kw or {}
+        if name == "decode_seq":  # the final rep triple too
+            kw = {**kw, "rep_fin": True}
         kern, plain = K[name][0], K[name][1]
         a = kern(*args, **kw)
         b = plain(*args, **kw)
@@ -310,8 +333,8 @@ def main() -> int:
             a, b = chain_live(a, args[7]), chain_live(b, args[7])
         elif name == "decode_huf":  # live up to nsym
             a, b = (live_cols(a, args[4]),), (live_cols(b, args[4]),)
-        elif name == "decode_seq":  # live up to nseq
-            a, b = (tuple(live_cols(x, args[3]) for x in y) for y in (a, b))
+        elif name == "decode_seq":  # live up to nseq; the final rep triples whole
+            a, b = ((*(live_cols(x, args[3]) for x in y[:3]), y[3]) for y in (a, b))
         elif name == "exec":  # live up to out_len
             a, b = (live_cols(a[0], a[1]), a[1]), (live_cols(b[0], b[1]), b[1])
         elif name in ("sort", "match"):  # tuples of outputs
@@ -330,12 +353,16 @@ def main() -> int:
         """The counters K4 (per block: chunks, chunks whose re-walk met no
         earlier walk, fix-up rounds, rows re-walked, tiles one thread
         finished), K8/K9 (per block: tiles, doubling rounds, most rounds in
-        a tile) or K6 (per stream chunk: lanes that met their speculative
+        a tile), K6 (per stream chunk: lanes that met their speculative
         walk, symbols they re-walked before meeting, lanes that never met,
         fix-up rounds, symbols re-walked in all rounds, symbols decoded in
-        series past the last lane) keep when handed a stats tensor."""
+        series past the last lane) or K7 (per chunk: stream words read
+        outside its CTA's staged words, sequences decoded) keep when handed
+        a stats tensor."""
         if name == "rep":
             shape = (args[0].shape[0], 5)
+        elif name == "decode_seq":
+            shape = (args[0].shape[0] * args[9], decode_lanes.SEQ_STATS)
         elif name == "exec":
             shape = (args[2].shape[0], 3)
         else:
@@ -343,6 +370,13 @@ def main() -> int:
         st = torch.zeros(shape, dtype=torch.int32, device=dev)
         K[name][0](*args, **kw, stats=st)
         return st.cpu()
+
+    def seq_counters(st):
+        """K7's counters summed over the chunks."""
+        st = st.to(torch.int64)
+        return {"chunks_walked": int((st[:, 1] > 0).sum()), "sequences": int(st[:, 1].sum()),
+                "longest_chain": int(st[:, 1].max()) if st.numel() else 0,
+                "words_not_staged": int(st[:, 0].sum())}
 
     def huf_counters(args, st):
         """K6's counters summed over the chunks with symbols."""
@@ -516,6 +550,9 @@ def main() -> int:
             if name == "decode_huf":
                 print(f"phase 2: K6 seeded accel {key[0][0]} counters: "
                       f"{huf_counters(args, kernel_stats(name, args, kw))}")
+            else:
+                print(f"phase 2: K7 seeded accel {key[0][0]} counters: "
+                      f"{seq_counters(kernel_stats(name, args, kw))}")
     # K6's hard inputs (tests/torch_cases.py huf_hard_inputs, 8 copies of its
     # 5 blocks): 256 codes of 8 bits, table_log 1 and 11, nsym no multiple of
     # the stride and exactly on a chunk boundary, 1-symbol and empty streams,
@@ -531,6 +568,30 @@ def main() -> int:
         run_h = lambda: decode_lanes.decode_huffman_lanes(*hargs)  # noqa: E731
         print(f"time [{card}]: K6 hard streams, {label}: {_time_ms(run_h, 10):.4f} ms, on the "
               f"device {_fmt_ms(_device_ms(run_h, 10, KERNEL_SYMBOL['decode_huf']))}")
+
+    # K7's hard inputs (tests/torch_cases.py seq_hard_inputs): 16 + 31 + 16
+    # extra bits a sequence with offsets wrapping past 2^31, FSE tables of
+    # table_log 9/8/9, RLE tables, nseq 1 and 3 strides exactly, a stream
+    # that is its end-marker byte, chunks without records, a record past
+    # its stream's end, max_seqs below nseq; serially, a 71 KB stream (more
+    # than the 64 KB a CTA stages) and a block without sequences; then the
+    # chunked set with scrambled records (seq_garbage_inputs).
+    hard_seq = torch_cases.seq_hard_inputs()
+    hard_seq["garbage"] = torch_cases.seq_garbage_inputs(hard_seq)
+    for label, v in hard_seq.items():
+        nb_ = len(v["nseq"])
+        none = np.zeros((nb_, 0), np.int32)
+        sargs = (cu(v["streams"]), cu(v["tbits"]),
+                 decode.SeqTables(*(cu(v[k]) for k in ("sym", "nb", "ns", "logs"))),
+                 cu(v["nseq"]), cu(np.tile(np.int32([1, 4, 8]), (nb_, 1))),
+                 cu(v.get("ckb", none)), cu(v.get("cks", none)),
+                 cu(v.get("ckr", none[..., None])), v["C"], v["NC"], v["max_seqs"])
+        hold("decode_seq", sargs, f"hard sequences, {label}")
+        run_s = lambda: decode_lanes.decode_sequences_lanes(*sargs)  # noqa: E731
+        print(f"phase 2: K7 hard sequences, {label} ({nb_} blocks x {v['NC']} chunks of "
+              f"{v['C']}), counters: {seq_counters(kernel_stats('decode_seq', sargs, {}))}; "
+              f"{_time_ms(run_s, 5):.4f} ms, on the device "
+              f"{_fmt_ms(_device_ms(run_s, 5, KERNEL_SYMBOL['decode_seq']))}")
 
     # K8/K9 on seeded valid sequences at the main path's shape (128 blocks of
     # 128 KB): literals front-compacted and from 4-stream rows, no window;
@@ -605,17 +666,54 @@ def main() -> int:
              f"({R}, {W}) with {P} payloads")
     # K13: low-entropy windows (hashes collide as in text) at the reference
     # test's shape (2 x 1024) and at the three level shapes (2048 x 8192).
-    for R, W, depth, nw, hl in ((2, 1024, 2, 2, 12), (2, 1024, 8, 8, 12),
-                                (2048, 8192, 3, 4, 15), (2048, 8192, 8, 2, 17),
-                                (2048, 8192, 8, 16, 17)):
+    def lowent_windows(R, W, nw, hl):
         byt = rng.integers(0, 7, (R, W + 4 * nw + 4), dtype=np.uint8).astype(np.uint32)
         w = byt[:, :-3] | (byt[:, 1:-2] << 8) | (byt[:, 2:-1] << 16) | (byt[:, 3:] << 24)
         h = ((w.astype(np.uint64) * 2654435761) % (1 << 32) >> (32 - hl)).astype(np.int64)
         lpos = np.arange(W)
         key = (np.where(lpos < W - 3, h[:, :W], 1 << hl) << (W.bit_length() - 1)) | lpos
         words = np.stack([w[:, 4 * k : 4 * k + W].view(np.int32) for k in range(nw)])
-        hold("match", (cu(key.astype(np.int32)), cu(words), depth, 1 << hl),
+        return cu(key.astype(np.int32)), cu(words)
+
+    for R, W, depth, nw, hl in ((2, 1024, 2, 2, 12), (2, 1024, 8, 8, 12),
+                                (2048, 8192, 3, 4, 15), (2048, 8192, 8, 2, 17),
+                                (2048, 8192, 8, 16, 17)):
+        hold("match", (*lowent_windows(R, W, nw, hl), depth, 1 << hl),
              f"({R}, {W}) depth {depth} words {nw}")
+    # K12 and K13 at widths past one CTA's shared memory (the tiled network
+    # of bitonic.cuh): K12 at 32768 and 65536 columns, K13 at 65536, small
+    # and at 16M elements (the bench batch's positions), with their times
+    # beside their plain versions (K12 also beside torch.sort + torch.gather)
+    # and the int32 operations of one network over the card's int32 rate.
+
+    def network_ms(R, W):
+        lw = W.bit_length() - 1
+        return R * (W // 2) * (lw * (lw + 1) // 2) * SORT_OPS_PER_CE / INT32_OPS_PER_S * 1e3
+
+    for R, W, P in ((2, 32768, 0), (1, 65536, 3), (512, 32768, 2), (256, 65536, 2)):
+        key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1) * 3 - W
+        wops = tuple(cu(x.astype(np.int32)) for x in
+                     [key] + [rng.integers(-2**31, 2**31, (R, W)) for _ in range(P)])
+        hold("sort", wops, f"wide ({R}, {W}) with {P} payloads")
+        if R * W >= 1 << 24:
+            lib_ms = _time_ms(lambda: (lambda k, o: (k, *(torch.gather(p_, -1, o)
+                                                           for p_ in wops[1:])))(
+                *torch.sort(wops[0], dim=-1)), 5)
+            print(f"time [{card}]: K12 wide ({R}, {W}) x {P + 1} operands "
+                  f"{_time_ms(lambda: sort.sort_rows(*wops), 5):.4f} ms, plain "
+                  f"{_time_ms(lambda: sort.sort_rows_plain(*wops), 3):.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {network_ms(R, W):.4f} ms (operations)")
+    del wops
+    for R, W, depth, nw, hl in ((2, 65536, 8, 4, 14), (256, 65536, 8, 2, 14)):
+        key_w, words_w = lowent_windows(R, W, nw, hl)
+        margs_w = (key_w, words_w, depth, 1 << hl)
+        hold("match", margs_w, f"wide ({R}, {W}) depth {depth} words {nw}")
+        if R * W >= 1 << 24:
+            print(f"time [{card}]: K13 wide ({R}, {W}) depth {depth} words {nw} "
+                  f"{_time_ms(lambda: match.match_windows(*margs_w), 5):.4f} ms, plain "
+                  f"{_time_ms(lambda: match.match_windows_plain(*margs_w), 3):.4f} ms, "
+                  f"network bound {network_ms(R, W):.4f} ms (operations)")
+    del key_w, words_w, margs_w
     # K11: as tests/test_pallas_deposit.py builds its inputs, its sparse
     # case, and 32-bit fields running past the padded width.
     dep_cases = []
@@ -919,7 +1017,42 @@ def main() -> int:
         print(f"time [{card}]: level {level} find_matches fused (K13) "
               f"{fused_t[level]['fused_ms']:.3f} ms, plain route "
               f"{fused_t[level]['plain_route_ms']:.3f} ms")
+        if level == 3:
+            fm3 = (fm_args, fm_kw)
         del f_ml, f_off, p_ml, p_off, capL, capF, margs, key_m, words_m
+
+    # The fused route at hash_log 14 and 64 KB windows (K13's tiled path) on
+    # the inputs level 3 hands find_matches, against the sort route at the
+    # same knobs; then two_band on the fused route, which returns the fused
+    # (ml, off) as the JAX package's fused route does.
+    kw_w = {**fm3[1], "hash_log": 14, "mf_win_log": 16}
+    if not lz77.fused_route_ok(N, kw_w["hash_log"], kw_w["mf_win_log"]):
+        _fail(f"phase 4d: the fused route does not apply at {kw_w}")
+    (f_ml, f_off), lf, _ = record(
+        [], lambda: lz77.find_matches(*fm3[0], **kw_w, use_pallas_match=True), True)
+    if lf["match"] != 1 or any(v for k, v in lf.items() if k != "match"):
+        _fail(f"phase 4d: the 64 KB-window fused find_matches launched {lf}")
+    fused_launches += lf["match"]
+    p_ml, p_off = lz77.find_matches(*fm3[0], **kw_w)
+    live = posN < fm3[0][1].to(torch.int64)[:, None] - (kw_w["min_match"] - 1)
+    bad = int((live & ((f_ml != p_ml) | (f_off != p_off))).sum())
+    dead = int((~live & ((f_ml != 0) | (f_off != 0))).sum())
+    if bad or dead:
+        _fail(f"phase 4d: 64 KB windows: the fused route differs from the plain route at {bad} "
+              f"live positions; {dead} dead positions are not 0")
+    print(f"phase 4d: {kw_w}: fused route (K13, tiled sort) == plain route at all "
+          f"{int(live.sum())} live positions; launches {lf}")
+    print(f"time [{card}]: 64 KB-window find_matches fused (K13) "
+          f"{_time_ms(lambda: lz77.find_matches(*fm3[0], **kw_w, use_pallas_match=True), 3):.3f}"
+          f" ms, plain route {_time_ms(lambda: lz77.find_matches(*fm3[0], **kw_w), 3):.3f} ms")
+    del f_ml, f_off, p_ml, p_off
+    tb = lz77.find_matches(*fm3[0], **{**fm3[1], "two_band": True}, use_pallas_match=True)
+    one = lz77.find_matches(*fm3[0], **fm3[1], use_pallas_match=True)
+    if len(tb) != 2 or not all(torch.equal(a, b) for a, b in zip(tb, one)):
+        _fail("phase 4d: find_matches(two_band=True, use_pallas_match=True) is not the fused "
+              "route's (ml, off)")
+    print("phase 4d: two_band with use_pallas_match returns the fused route's (ml, off)")
+    del tb, one
 
     # K11 on the sequence deposits of the DEFAULT_CONFIG batch (the calls that
     # take the deposit tree): offsets the exclusive cumsum of the lengths, M
@@ -1150,10 +1283,13 @@ def main() -> int:
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms"
                   + (f" (on the device {_fmt_ms(dev_ms)})" if name in KERNEL_SYMBOL else "")
                   + f", bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
-            if name in ("rep", "exec", "decode_huf"):  # the redesigned kernels' counters
+            if name in ("rep", "exec", "decode_huf", "decode_seq"):  # redesigned kernels' counters
                 st = kernel_stats(name, args, kw).to(torch.int64)
                 if name == "decode_huf":
                     got = huf_counters(args, st)
+                elif name == "decode_seq":
+                    got = {k2.replace("longest_chain", "longest_chain_max"): v
+                           for k2, v in seq_counters(st).items()}
                 elif name == "rep":
                     got = {"chunks": int(st[:, 0].sum()), "chunks_unmet": int(st[:, 1].sum()),
                            "fixup_rounds_max": int(st[:, 2].max()),

@@ -1,8 +1,11 @@
 """The port's CUDA kernels (K1-K13) against their plain PyTorch versions, on
 a card, a DEFAULT_CONFIG frame and an optimal-parse (level 19, trimmed
-search) frame made on the card against the ones made on the CPU, and the
-decode of decode_accel frames on the card against the
-input, and the fused match route (K13) against the CPU's. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
+search) frame made on the card against the ones made on the CPU, the decode
+of decode_accel frames on the card against the input, and the fused match
+route (K13) against the CPU's, also with two_band and with 64 KB windows; K7
+also on its hard inputs (tests/torch_cases.py seq_hard_inputs, and with
+scrambled records) with its final rep triple, K12 also past one CTA's
+width. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
 exact equality; the K5 state chains on their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
 tests/test_torch_*.py files.)
@@ -89,6 +92,13 @@ def _check_fused_route_kernels(dev):
         ops = [_t(x).to(dev) for x in torch_cases.CASES[name].inputs()["ops"]]
         for a, b in zip(sort.sort_rows(*ops), sort.sort_rows_plain(*ops)):
             assert torch.equal(a, b), name
+    rng = np.random.default_rng(7)  # K12 past one CTA's width: the tiled network
+    for W, P in ((32768, 2), (65536, 0)):
+        key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (2, 1)), axis=1) * 3 - W
+        ops = [_t(key).to(dev)] + [_t(rng.integers(-2**31, 2**31, (2, W)).astype(np.int32)).to(dev)
+                                   for _ in range(P)]
+        for a, b in zip(sort.sort_rows(*ops), sort.sort_rows_plain(*ops)):
+            assert torch.equal(a, b), W
     for name in ("match_windows_d2_w2", "match_windows_d8_w8"):
         i = torch_cases.CASES[name].inputs()
         args = (_t(i["key"]).to(dev), [_t(w).to(dev) for w in i["words"]], i["depth"],
@@ -105,6 +115,17 @@ def _check_fused_route_kernels(dev):
     fml, foff = lz77.find_matches(b, n, use_pallas_match=True, **torch_cases.FUSED_KW)
     want = torch_cases.CASES["find_matches_fused"].port(i)
     assert torch.equal(fml.cpu(), want["fused_ml"]) and torch.equal(foff.cpu(), want["fused_off"])
+    both = lz77.find_matches(b, n, use_pallas_match=True, two_band=True, **torch_cases.FUSED_KW)
+    assert len(both) == 2 and torch.equal(both[0], fml) and torch.equal(both[1], foff)
+    # 64 KB windows (K13's tiled path) against the sort route at live positions.
+    blk = _t(np.frombuffer(make_corpus(2 * 131072), np.uint8).reshape(2, 131072)).to(dev)
+    n2 = torch.tensor([131072, 100000], dtype=torch.int32, device=dev)
+    kw = dict(hash_log=14, depth=4, cap=8, mf_win_log=16)
+    f = lz77.find_matches(blk, n2, use_pallas_match=True, **kw)
+    p = lz77.find_matches(blk, n2, **kw)
+    live = torch.arange(131072, device=dev)[None, :] < n2.to(torch.int64)[:, None] - 3
+    for x, y in zip(f, p):
+        assert torch.equal(torch.where(live, x, 0), torch.where(live, y, 0))
 
 
 def _live(x, n):
@@ -133,10 +154,26 @@ def _check_decode_kernels(dev):
                       ((torch.zeros((4, 0), dtype=torch.int32),) * 2
                        + (torch.zeros((4, 0, 3), dtype=torch.int32),), 20000, 1)):
         ck = tuple(x.to(dev) for x in ck)
-        got = decode_lanes.decode_sequences_lanes(*sargs, *ck, C, NC, 20000)
-        want = decode.decode_sequences_chunks(*sargs, *ck, C, NC, 20000)[:3]
-        for g, w in zip(got, want):
+        got = decode_lanes.decode_sequences_lanes(*sargs, *ck, C, NC, 20000, rep_fin=True)
+        ll, ml, off, rows = decode.decode_sequences_chunks(*sargs, *ck, C, NC, 20000)
+        for g, w in zip(got, (ll, ml, off)):
             assert torch.equal(_live(g, sargs[3]), _live(w, sargs[3]))
+        assert torch.equal(got[3], decode.final_rep(rows, sargs[3], C, NC))
+    hard = torch_cases.seq_hard_inputs()  # K7's hard inputs, and with scrambled records
+    hard["garbage"] = torch_cases.seq_garbage_inputs(hard)
+    for name, v in hard.items():
+        nb = len(v["nseq"])
+        none = np.zeros((nb, 0), np.int32)
+        hargs = [_t(v[k]).to(dev) for k in ("streams", "tbits")]
+        hargs += [decode.SeqTables(*(_t(v[k]).to(dev) for k in ("sym", "nb", "ns", "logs"))),
+                  _t(v["nseq"]).to(dev), _t(np.tile(np.int32([1, 4, 8]), (nb, 1))).to(dev)]
+        hargs += [_t(v.get(k, none)).to(dev) for k in ("ckb", "cks")]
+        hargs += [_t(v.get("ckr", none[..., None])).to(dev), v["C"], v["NC"], v["max_seqs"]]
+        got = decode_lanes.decode_sequences_lanes(*hargs, rep_fin=True)
+        ll, ml, off, rows = decode.decode_sequences_chunks(*hargs)
+        want = (ll, ml, off, decode.final_rep(rows, hargs[3], v["C"], v["NC"]))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), name
     for W in (0, 300):
         eargs = [_t(a).to(dev) for a in torch_cases.exec_inputs(W, 6, 4096, W, 96, 2048)]
         eargs[6] = eargs[6][:, :W].contiguous()

@@ -42,7 +42,8 @@ import zstandard
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
     "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "greedy", "rep", "rep_hard",
-                "decode_sequences_serial", "decode_sequences_chunked", "decode_huffman",
+                "decode_sequences_serial", "decode_sequences_chunked", "decode_sequences_hard",
+                "decode_huffman",
                 "decode_huffman_hard",
                 "execute_sequences", "execute_sequences_hard",
                 "opt_steps_mm3_cap64", "opt_steps_mm4_cap16", "sort_rows_1024", "sort_rows_2048",
@@ -51,6 +52,7 @@ TOPICS = {
                 "deposit_pallas_sparse", "deposit_pallas_edge"],
     "deposit_parse_predefined": ["deposit_scatter", "deposit_tree", "parse_8k",
                                  "encode_predefined", "find_matches_wide", "find_matches_whole",
+                                 "find_matches_fused_two_band",
                                  "find_matches_long", "parse_optimal", "parse_optimal_overflow",
                                  "find_matches_fused"],
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],

@@ -124,7 +124,8 @@ def _check_greedy_parse_matches_jax(lazy):
 def _check_fused_route_equals_sort_route(batch):
     """The fused route (find_matches_fused: the K13 path with its plain
     version on the CPU) equals the sort route at every live position and is
-    0 at dead ones; use_pallas_match with two_band raises."""
+    0 at dead ones; on the CPU, use_pallas_match with two_band returns the
+    sort route's four outputs, as the JAX package's find_matches does."""
     blocks, lengths = (torch.from_numpy(a) for a in batch)
     kw = dict(hash_log=13, depth=8, cap=16, mf_win_log=10)
     ml, off = tl.find_matches(blocks, lengths, **kw)
@@ -134,8 +135,9 @@ def _check_fused_route_equals_sort_route(batch):
     assert torch.equal(torch.where(live, foff, 0), torch.where(live, off, 0))
     assert not fml[~live].any() and not foff[~live].any()
     assert (fml >= 4).sum() > 1000
-    with pytest.raises(ValueError, match="two_band"):
-        tl.find_matches(blocks, lengths, use_pallas_match=True, two_band=True, **kw)
+    both = tl.find_matches(blocks, lengths, use_pallas_match=True, two_band=True, **kw)
+    want = tl.find_matches(blocks, lengths, two_band=True, **kw)
+    assert len(both) == 4 and all(torch.equal(a, b) for a, b in zip(both, want))
     with pytest.raises(ValueError, match="mf_win_log"):
         tl.find_matches_fused(blocks, lengths, hash_log=17, depth=2, cap=8, mf_win_log=14)
 

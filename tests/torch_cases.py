@@ -1291,6 +1291,237 @@ case("decode_sequences_serial", "decode", _staged("zstd"), _seq_port, _seq_ref)
 case("decode_sequences_chunked", "decode", _staged("accel"), _seq_port, _seq_ref)
 
 
+def _i32wrap(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _seq_block(rng, dts, nseq: int, stride: int):
+    """A sequence bitstream that the decode tables dts (LL, OF, ML DTables)
+    read as nseq sequences with seeded extra and state bits, and its
+    checkpoint records every `stride` sequences. Returns (stream bytes,
+    total_bits, records (cursor, packed states, rep triple) before sequences
+    stride, 2 stride, ...). The decode walk is simulated forward: the
+    fields go in the order the decoder reads them, the first one at the
+    stream's top; offsets and the rep triple wrap as int32."""
+    from tpu_zstd_torch.constants import LL_BASELINE, LL_BITS, ML_BITS
+
+    fields, used, recs = [], 0, []
+
+    def put(v, n):
+        nonlocal used
+        fields.append((int(v), int(n)))
+        used += int(n)
+
+    def draw(n):
+        return int(rng.integers(0, 1 << n)) if n else 0
+
+    st = []
+    for dt in dts:
+        st.append(draw(dt.table_log))
+        put(st[-1], dt.table_log)
+    rep = [1, 4, 8]
+    for j in range(nseq):
+        if j and j % stride == 0:
+            recs.append((used, st[0] | st[1] << 10 | st[2] << 20, list(rep)))
+        e = [(int(dt.symbol[x]), int(dt.nb_bits[x]), int(dt.new_state[x]))
+             for dt, x in zip(dts, st)]
+        llc, ofc, mlc = min(e[0][0], 35), min(e[1][0], 31), min(e[2][0], 52)
+        ofx = draw(ofc)
+        put(ofx, ofc)
+        ofv = _i32wrap((1 << min(ofc, 30)) + ofx) if ofc else 1
+        mlx, llx = draw(int(ML_BITS[mlc])), draw(int(LL_BITS[llc]))
+        put(mlx << int(LL_BITS[llc]) | llx, int(ML_BITS[mlc]) + int(LL_BITS[llc]))
+        ll = int(LL_BASELINE[llc]) + llx
+        idx = ofv - 1 + (ll == 0)
+        if ofv > 3:
+            rep = [_i32wrap(ofv - 3), rep[0], rep[1]]
+        else:
+            off = rep[idx] if 0 <= idx <= 2 else max(_i32wrap(rep[0] - 1), 1)
+            rep = [off, rep[1] if idx == 0 else rep[0], rep[2] if idx <= 1 else rep[1]]
+        if j < nseq - 1:
+            b = [draw(x[1]) for x in e]
+            put(b[0] << (e[1][1] + e[2][1]) | b[2] << e[1][1] | b[1], e[0][1] + e[1][1] + e[2][1])
+            st = [x[2] + y for x, y in zip(e, b)]
+    acc = 0
+    for v, n in fields:
+        acc = acc << n | v
+    T = used
+    data = (acc | 1 << T).to_bytes(T // 8 + 1, "little")
+    return data, T, [(T - u, sts, r) for u, sts, r in recs]
+
+
+def _seq_norm(rng, nsym: int, log: int):
+    """Normalized counts of every symbol 0..nsym-1, summing to 2^log."""
+    extra = rng.multinomial((1 << log) - nsym, rng.dirichlet(np.ones(nsym) * 0.3))
+    return (extra + 1).astype(np.int32)
+
+
+def seq_hard_inputs(seed: int = 11, stride: int = 64):
+    """K7's hard inputs, staged as the decode plan stages them (keys as
+    `_staged`, plus max_seqs), as "chunked" (records every `stride`
+    sequences) and "serial" (one chunk a block) sets:
+
+    - RLE tables of LL code 35, OF code 31 and ML code 52: 16 + 31 + 16
+      extra bits every sequence, offsets past 2^31 wrapping; nseq exactly 3
+      strides;
+    - FSE tables of table_log 9, 8 and 9 over every code; nseq 2 strides
+      + 37;
+    - the predefined tables, nseq 1;
+    - RLE tables whose codes read no bits (states of table_log 0), nseq 2
+      strides + 5, a stream that is its end-marker byte alone, and no
+      records: its chunks 1 and 2 start from zeros;
+    - FSE tables, nseq 4 strides, chunk 1's record pointing 40 bits past the
+      stream's end (into the row's zero padding);
+    - chunks past every block's last record (the plan's power-of-two chunk
+      count), and max_seqs 8 below the longest block's nseq (the last
+      sequences decode for the rep triple only).
+    Serial set: the first table set with 9000 sequences (a stream longer
+    than K7's 64 KB of staged words), the second with 700, the predefined
+    tables with 1, and a block with no sequences."""
+    from tpu_zstd_torch.api.decompress import _dense_tables
+    from tpu_zstd_torch.format.fse import build_dtable
+    from tpu_zstd_torch.format.sequences import predefined_dtables, rle_dtable
+
+    rng = np.random.default_rng(seed)
+    rle_max = (rle_dtable(35), rle_dtable(31), rle_dtable(52))
+    rle_zero = (rle_dtable(0), rle_dtable(0), rle_dtable(0))
+
+    def fse():
+        return (build_dtable(_seq_norm(rng, 36, 9), 9), build_dtable(_seq_norm(rng, 32, 8), 8),
+                build_dtable(_seq_norm(rng, 53, 9), 9))
+
+    def stage(blocks, C=None, NC=None, max_seqs=None):
+        B = len(blocks)
+        S = _bucket_pow2(max(max(len(d) for _, d, _, _ in blocks), 64))
+        st = {"streams": np.zeros((B, S), np.uint8), "tbits": np.zeros(B, np.int32),
+              "nseq": np.zeros(B, np.int32), "sym": np.zeros((B, 3, 512), np.int32),
+              "nb": np.zeros((B, 3, 512), np.int32), "ns": np.zeros((B, 3, 512), np.int32),
+              "logs": np.zeros((B, 3), np.int32)}
+        for b, (dts, data, T, n) in enumerate(blocks):
+            st["streams"][b, : len(data)] = np.frombuffer(data, np.uint8)
+            st["tbits"][b], st["nseq"][b] = T, n
+            if dts is not None:
+                st["sym"][b], st["nb"][b], st["ns"][b], st["logs"][b] = _dense_tables(dts)
+        mx = int(st["nseq"].max())
+        st["max_seqs"] = max_seqs or max(-(-mx // 256) * 256, 256)
+        if C is None:
+            st.update(C=max(mx, 1), NC=1)
+        else:
+            st.update(C=C, NC=NC, ckb=np.zeros((B, NC - 1), np.int32),
+                      cks=np.zeros((B, NC - 1), np.int32), ckr=np.ones((B, NC - 1, 3), np.int32))
+        return st
+
+    chunked, recs = [], []
+    for dts, n in ((rle_max, 3 * stride), (fse(), 2 * stride + 37), (predefined_dtables(), 1),
+                   (rle_zero, 2 * stride + 5), (fse(), 4 * stride)):
+        data, T, rec = _seq_block(rng, dts, n, stride)
+        chunked.append((dts, data, T, n))
+        recs.append(rec)
+    recs[3] = []  # no records: chunks 1 and 2 start from zeros
+    NC = _bucket_pow2(-(-max(n for *_, n in chunked) // stride), lo=1)
+    ch = stage(chunked, stride, NC, 4 * stride - 8)
+    for b, rec in enumerate(recs):
+        for k, (cur, sts, rep) in enumerate(rec):
+            ch["ckb"][b, k], ch["cks"][b, k], ch["ckr"][b, k] = cur, sts, rep
+    bad = 8 * len(chunked[4][1]) + 40
+    assert bad + 64 <= 8 * ch["streams"].shape[1]
+    ch["ckb"][4, 0] = bad
+    serial = []
+    for dts, n in ((rle_max, 9000), (fse(), 700), (predefined_dtables(), 1)):
+        data, T, _ = _seq_block(rng, dts, n, 1 << 30)
+        serial.append((dts, data, T, n))
+    serial.append((None, b"", 0, 0))
+    return {"chunked": ch, "serial": stage(serial)}
+
+
+def seq_garbage_inputs(hard: dict, seed: int = 12):
+    """The chunked hard set with scrambled records (cursors from below the
+    stream to past its row, 10-bit states past the tables, rep triples
+    anywhere in int32), 62 sequences a chunk and max_seqs no multiple of 4:
+    for K7 against its plain version only (the JAX package reads bits
+    below a stream and states past 511 otherwise)."""
+    rng = np.random.default_rng(seed)
+    g = dict(hard["chunked"])
+    B, K = g["ckb"].shape
+    S = g["streams"].shape[1]
+    g["ckb"] = rng.integers(-300, 8 * S + 600, (B, K)).astype(np.int32)
+    g["cks"] = rng.integers(0, 1 << 30, (B, K)).astype(np.int32)
+    g["ckr"] = rng.integers(-(1 << 31), 1 << 31, (B, K, 3)).astype(np.int32)
+    g.update(C=62, max_seqs=g["max_seqs"] - 3)
+    return g
+
+
+def _bucket_pow2(n: int, lo: int = 64) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def seq_port_run(i):
+    """The plain K7 on a staged set: (ll, ml, off, rep_fin)."""
+    from tpu_zstd_torch.ops import decode
+
+    tables = decode.SeqTables(*(_t(i[k]) for k in ("sym", "nb", "ns", "logs")))
+    nseq = _t(i["nseq"])
+    rep0 = _t(np.tile(np.int32([1, 4, 8]), (len(i["nseq"]), 1)))
+    none = np.zeros((len(i["nseq"]), 0), np.int32)
+    ck = [_t(i.get(k, none)) for k in ("ckb", "cks")] + [_t(i.get("ckr", none[..., None]))]
+    ll, ml, off, rows = decode.decode_sequences_chunks(
+        _t(i["streams"]), _t(i["tbits"]), tables, nseq, rep0, *ck, i["C"], i["NC"], i["max_seqs"])
+    return ll, ml, off, decode.final_rep(rows, nseq, i["C"], i["NC"])
+
+
+def _seq_hard_port(i):
+    out = {}
+    for k, v in i.items():
+        out.update({f"{k}_{n}": x for n, x in zip(("ll", "ml", "off", "rep_fin"),
+                                                   seq_port_run(v))})
+    return out
+
+
+def _seq_hard_ref(i):
+    """The chunked set through the JAX package's chunk scan
+    (decode_jax._decode_seqs_core, set up as decode_sequences_device_chunked
+    sets it up, its carried rep rows kept), the serial set through
+    decode_sequences_device."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import decode_jax
+
+    out = {}
+    for k, v in i.items():
+        tables = decode_jax.SeqTables(*(jnp.asarray(v[n]) for n in ("sym", "nb", "ns", "logs")))
+        B, C, NC, ms = len(v["nseq"]), v["C"], v["NC"], v["max_seqs"]
+        nseq = v["nseq"]
+        if k == "serial":
+            ll, ml, off, fin = decode_jax.decode_sequences_device(
+                jnp.asarray(v["streams"]), jnp.asarray(v["tbits"]), tables, jnp.asarray(nseq),
+                jnp.asarray(np.tile(np.int32([1, 4, 8]), (B, 1))), ms)
+        else:
+            rep_rows = np.concatenate([np.tile(np.int32([[1, 4, 8]]), (B, 1, 1)), v["ckr"]], 1)
+
+            def run(streams, tbits, ckb, cks, rows):
+                return decode_jax._decode_seqs_core(
+                    decode_jax._pack_words(streams), tbits, tables, jnp.asarray(nseq),
+                    rows, ckb, cks, C, NC)
+
+            o_ll, o_ml, o_off, rows = jax.jit(run)(
+                jnp.asarray(v["streams"]), jnp.asarray(v["tbits"]), jnp.asarray(v["ckb"]),
+                jnp.asarray(v["cks"]), jnp.asarray(rep_rows.reshape(-1, 3)))
+            ll, ml, off = (np.asarray(a).T.reshape(B, NC * C)[:, :ms] for a in (o_ll, o_ml, o_off))
+            cl = np.minimum((np.maximum(nseq, 1) - 1) // C, NC - 1)
+            fin = np.asarray(rows).reshape(B, NC, 3)[np.arange(B), cl]
+        out.update({f"{k}_{n}": np.asarray(x) for n, x in zip(("ll", "ml", "off", "rep_fin"),
+                                                               (ll, ml, off, fin))})
+    return out
+
+
+case("decode_sequences_hard", "decode", lambda: seq_hard_inputs(), _seq_hard_port,
+     _seq_hard_ref)
+
+
 def _huf_mask(i, syms):
     syms = np.asarray(syms)
     return np.where(np.arange(syms.shape[1])[None, :] < i["lnsym"][:, None], syms, 0)
@@ -1732,6 +1963,11 @@ case("find_matches_wide", "optimal",
 case("find_matches_whole", "optimal",
      _fm_inputs(32768, dict(hash_log=17, depth=4, cap=16, mf_win_log=0, min_match=3,
                             two_band=True)), _fm_port, _fm_ref)
+# two_band with use_pallas_match on the CPU: the sort route's four outputs,
+# as the JAX package returns them off its accelerator.
+case("find_matches_fused_two_band", "optimal",
+     _fm_inputs(32768, dict(hash_log=14, depth=4, cap=16, mf_win_log=10, min_match=4,
+                            two_band=True, use_pallas_match=True)), _fm_port, _fm_ref)
 
 
 def _fml_port(i):

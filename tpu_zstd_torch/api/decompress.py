@@ -47,7 +47,7 @@ from ..format.accel import parse_accel_tail
 from ..format.frame import decode_literals_section, parse_frame_header
 from ..format.sequences import SeqDecodeTables, read_nbseq, read_sequence_table
 from ..format.xxhash import content_checksum
-from ..ops.decode import HUF_TSIZE, TSIZE_MAX, SeqTables
+from ..ops.decode import HUF_TSIZE, TSIZE_MAX, SeqTables, pack_seq_tables
 from ..ops.decode_lanes import decode_huffman_lanes, decode_sequences_lanes
 from ..ops.exec import execute_sequences
 from ..ops.pipeline import resolve_device
@@ -339,7 +339,8 @@ def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
                 sym[bi], nb[bi], ns[bi], logs[bi] = p.tables
         max_nseq = int(nseq.max()) if B else 0
         ms = max(-(-max_nseq // 256) * 256, 256)
-        tables = SeqTables(t(sym), t(nb), t(ns), t(logs))
+        # Packed once here, as K7 takes them, not on every execute().
+        tables = pack_seq_tables(SeqTables(t(sym), t(nb), t(ns), t(logs)))
         streams_d, tbits_d, nseq_d, nlit_d = t(streams, torch.uint8), t(tbits), t(nseq), t(nlit)
         rep0_d = t(np.tile(np.asarray(REPCODE_INIT, np.int32), (B, 1)))
         if use_accel:

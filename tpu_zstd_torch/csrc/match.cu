@@ -25,6 +25,12 @@
 // the first predecessor with another hash; and it stops once a match spans
 // every carried word, since no later candidate can be strictly longer.
 //
+// Windows wider than 32768 positions (any power of two up to 2^30): the
+// keys sort into a scratch row with the tiled network of bitonic.cuh (tiles
+// of 32768 keys, the stages across tiles as passes over device memory), then
+// a second kernel, one thread a sorted position, runs the same depth
+// compares against the scratch row and the same store to out[pos].
+//
 // Bound: operations. One network of log2(W) (log2(W) + 1) / 2 stages of
 // W / 2 compare-exchanges a window, plus the depth compares, against a few
 // bytes a position of device memory.
@@ -33,6 +39,54 @@
 
 #include "bitonic.cuh"
 
+// The depth compares and the store of sorted position i of its window.
+__device__ __forceinline__ void match_one(const int32_t* s_key, int i, int log_w,
+                                          const int32_t* wrow, int64_t plane, int32_t* orow,
+                                          int nwords, int depth, int sentinel) {
+  const int pmask = (1 << log_w) - 1;
+  const int32_t sk = s_key[i];
+  const int32_t sh = sk >> log_w;
+  const int sp = sk & pmask;
+  int best_ml = 0, best_off = 0;
+  if (sh < sentinel) {
+    const int full = 4 * nwords;
+    const int dmax = min(depth, i);
+    for (int d = 1; d <= dmax; ++d) {
+      const int32_t pk = s_key[i - d];
+      if ((pk >> log_w) != sh) break;
+      const int pp = pk & pmask;
+      int ml = 0;
+      for (int k = 0; k < nwords; ++k) {
+        const uint32_t x = (uint32_t)(wrow[k * plane + sp] ^ wrow[k * plane + pp]);
+        if (x != 0) {
+          ml += (__ffs((int)x) - 1) >> 3;  // equal low bytes of a differing word
+          break;
+        }
+        ml += 4;
+      }
+      if (ml > best_ml) {
+        best_ml = ml;
+        best_off = sp - pp;
+        if (ml == full) break;
+      }
+    }
+  }
+  orow[sp] = (best_ml << log_w) | best_off;
+}
+
+__global__ void __launch_bounds__(256)
+match_wide_kernel(const int32_t* __restrict__ skey, const int32_t* __restrict__ words,
+                  int32_t* __restrict__ out, int64_t R, int log_w, int nwords, int depth,
+                  int sentinel) {
+  const int64_t n = R << log_w;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t base = (e >> log_w) << log_w;
+    match_one(skey + base, (int)(e - base), log_w, words + base, n, out + base, nwords, depth,
+              sentinel);
+  }
+}
+
 template <int LOG_W>
 __global__ void __launch_bounds__((1 << LOG_W) / 2 < 1024 ? (1 << LOG_W) / 2 : 1024)
 match_windows_kernel(const int32_t* __restrict__ key, const int32_t* __restrict__ words,
@@ -40,43 +94,13 @@ match_windows_kernel(const int32_t* __restrict__ key, const int32_t* __restrict_
                      int sentinel) {
   constexpr int W = 1 << LOG_W;
   constexpr int T = W / 2 < 1024 ? W / 2 : 1024;
-  constexpr int PMASK = W - 1;
   extern __shared__ int32_t s_key[];
   const int64_t base = (int64_t)blockIdx.x * W;
   const int64_t plane = R * W;  // stride from one carried word to the next
   for (int i = threadIdx.x; i < W; i += T) s_key[i] = key[base + i];
   bitonic_sort_smem<LOG_W, T, false>(s_key, nullptr);
-  const int32_t* wrow = words + base;
-  const int full = 4 * nwords;
-  for (int i = threadIdx.x; i < W; i += T) {
-    const int32_t sk = s_key[i];
-    const int32_t sh = sk >> LOG_W;
-    const int sp = sk & PMASK;
-    int best_ml = 0, best_off = 0;
-    if (sh < sentinel) {
-      const int dmax = min(depth, i);
-      for (int d = 1; d <= dmax; ++d) {
-        const int32_t pk = s_key[i - d];
-        if ((pk >> LOG_W) != sh) break;
-        const int pp = pk & PMASK;
-        int ml = 0;
-        for (int k = 0; k < nwords; ++k) {
-          const uint32_t x = (uint32_t)(wrow[k * plane + sp] ^ wrow[k * plane + pp]);
-          if (x != 0) {
-            ml += (__ffs((int)x) - 1) >> 3;  // equal low bytes of a differing word
-            break;
-          }
-          ml += 4;
-        }
-        if (ml > best_ml) {
-          best_ml = ml;
-          best_off = sp - pp;
-          if (ml == full) break;
-        }
-      }
-    }
-    out[base + sp] = (best_ml << LOG_W) | best_off;
-  }
+  for (int i = threadIdx.x; i < W; i += T)
+    match_one(s_key, i, LOG_W, words + base, plane, out + base, nwords, depth, sentinel);
 }
 
 template <int LOG_W>
@@ -93,10 +117,22 @@ static int launch_match(const void* key, const void* words, void* out, int64_t R
   return (int)cudaGetLastError();
 }
 
-// key, out: int32 (R, W); words: int32 (nwords, R, W).
-extern "C" int tz_match_windows(const void* key, const void* words, void* out, int64_t R,
-                                int log_w, int nwords, int depth, int sentinel,
+// key, out: int32 (R, W); words: int32 (nwords, R, W); skey: int32 (R, W)
+// scratch, used for windows wider than 32768 only.
+extern "C" int tz_match_windows(const void* key, const void* words, void* out, void* skey,
+                                int64_t R, int log_w, int nwords, int depth, int sentinel,
                                 cudaStream_t stream) {
+  if (log_w > 15) {
+    if (skey == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = bitonic_sort_wide<15, false>((const int32_t*)key, (int32_t*)skey, nullptr,
+                                                 R, log_w, stream);
+    if (err != 0) return err;
+    const int64_t n = R << log_w;
+    match_wide_kernel<<<(unsigned)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16), 256,
+                        0, stream>>>((const int32_t*)skey, (const int32_t*)words, (int32_t*)out,
+                                     R, log_w, nwords, depth, sentinel);
+    return (int)cudaGetLastError();
+  }
   switch (log_w) {
     case 10: return launch_match<10>(key, words, out, R, nwords, depth, sentinel, stream);
     case 11: return launch_match<11>(key, words, out, R, nwords, depth, sentinel, stream);

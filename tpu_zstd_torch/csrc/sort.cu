@@ -11,7 +11,10 @@
 // bitonic.cuh sorts (key, slot); the payloads never enter shared memory:
 // after the network each payload row is gathered by slot from device memory
 // (a permutation inside one row, which L2 holds), so any operand count fits.
-// Rows wider than 16384 do not fit (the wrapper raises).
+// Rows wider than 16384 (any power of two up to 2^30) take the tiled network
+// of bitonic.cuh (tiles of 16384 columns, the stages across tiles as passes
+// over device memory) on the output key row and a (key, slot) scratch row,
+// then the same gather of each payload by slot in a last kernel.
 //
 // Bound: on paper bytes (each operand read and written once), but each row
 // runs log2(W) (log2(W) + 1) / 2 network stages of W / 2 compare-exchanges
@@ -61,10 +64,36 @@ static int launch_sort(const void* key, void* key_out, const void* pay_in, const
   return (int)cudaGetLastError();
 }
 
-// pay_in / pay_out: device arrays of npay payload pointers (int32 (R, W) each).
+// Wide rows: payload p of element i is the payload at column slot[i] of its row.
+__global__ void __launch_bounds__(256)
+gather_payloads_kernel(const int32_t* __restrict__ slot, const int64_t* __restrict__ pay_in,
+                       const int64_t* __restrict__ pay_out, int npay, int64_t n, int log_w) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t src = ((i >> log_w) << log_w) + slot[i];
+    for (int p = 0; p < npay; ++p) {
+      const int32_t* in = reinterpret_cast<const int32_t*>(pay_in[p]);
+      reinterpret_cast<int32_t*>(pay_out[p])[i] = in[src];
+    }
+  }
+}
+
+// pay_in / pay_out: device arrays of npay payload pointers (int32 (R, W) each);
+// slot: int32 (R, W) scratch, used for rows wider than 16384 only.
 extern "C" int tz_sort_rows(const void* key, void* key_out, const void* pay_in,
-                            const void* pay_out, int npay, int64_t R, int log_w,
+                            const void* pay_out, void* slot, int npay, int64_t R, int log_w,
                             cudaStream_t stream) {
+  if (log_w > 14) {
+    if (slot == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = bitonic_sort_wide<14, true>((const int32_t*)key, (int32_t*)key_out,
+                                                (int32_t*)slot, R, log_w, stream);
+    if (err != 0 || npay == 0) return err;
+    const int64_t n = R << log_w;
+    gather_payloads_kernel<<<(unsigned)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16),
+                             256, 0, stream>>>((const int32_t*)slot, (const int64_t*)pay_in,
+                                               (const int64_t*)pay_out, npay, n, log_w);
+    return (int)cudaGetLastError();
+  }
   switch (log_w) {
     case 10: return launch_sort<10>(key, key_out, pay_in, pay_out, npay, R, stream);
     case 11: return launch_sort<11>(key, key_out, pay_in, pay_out, npay, R, stream);

@@ -9,8 +9,8 @@ ops/decode_lanes.py and ops/exec.py run them on CPU tensors.
 
 Bitstreams are read backward from u32 words held in int64. A read of n <= 32
 bits below the cursor takes a 64-bit window from two words; bits below the
-stream start and past its end read as zeros, so a Huffman peek near the
-start is libzstd's zero-padded lookup. The decode loops are loops over
+stream start and past its row's end read as zeros, so a Huffman peek near
+the start is libzstd's zero-padded lookup. The decode loops are loops over
 steps, vectorized over rows (one row per block, or per checkpointed chunk
 of a block); each runs to the batch's live maximum (max nseq or nsym), not
 to the static capacity. Outputs past nseq / nsym are zero, as in the JAX
@@ -41,6 +41,20 @@ class SeqTables(NamedTuple):
     table_log: torch.Tensor
 
 
+class PackedSeqTables(NamedTuple):
+    """The decode tables as K7 takes them: packed (B, 3, TSIZE_MAX) int32,
+    symbol | nb_bits << 8 | new_state << 16, and table_log (B, 3) int32."""
+
+    packed: torch.Tensor
+    table_log: torch.Tensor
+
+
+def pack_seq_tables(tables: SeqTables) -> PackedSeqTables:
+    packed = (tables.symbol.to(torch.int32) | (tables.nb_bits.to(torch.int32) << 8)
+              | (tables.new_state.to(torch.int32) << 16))
+    return PackedSeqTables(packed.contiguous(), tables.table_log.to(torch.int32).contiguous())
+
+
 def _pack_words(streams: torch.Tensor) -> torch.Tensor:
     """(B, S) uint8 little-endian streams -> (B, ceil(S/4)) u32 words in int64."""
     B, S = streams.shape
@@ -48,26 +62,27 @@ def _pack_words(streams: torch.Tensor) -> torch.Tensor:
     return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
 
 
-def _read(words: torch.Tensor, wbase: torch.Tensor, bits_left: torch.Tensor, n):
+def _read(words: torch.Tensor, wbase: torch.Tensor, nw: int, bits_left: torch.Tensor, n):
     """n (<= 32) bits [bits_left - n, bits_left) of each row's stream.
 
-    words: flat u32 words of all streams; wbase (R,) each row's first word;
-    positions outside the stream read as zeros. Returns (value, bits_left - n).
+    words: flat u32 words of all streams, nw a row; wbase (R,) each row's
+    first word; positions outside the row read as zeros. Returns (value,
+    bits_left - n).
     """
     SW = words.shape[0]
     nl = bits_left - n
     w = nl >> 5  # floor: negative below the stream start
-    lo = torch.where(w >= 0, words[torch.clamp(wbase + w, 0, SW - 1)], 0)
-    hi = torch.where(w >= -1, words[torch.clamp(wbase + w + 1, 0, SW - 1)], 0)
+    lo = torch.where((w >= 0) & (w < nw), words[torch.clamp(wbase + w, 0, SW - 1)], 0)
+    hi = torch.where((w >= -1) & (w + 1 < nw), words[torch.clamp(wbase + w + 1, 0, SW - 1)], 0)
     v = ((lo | ((hi & 0x7FFFFFFF) << 32)) >> (nl & 31)) & ((1 << n) - 1)
     return v, nl
 
 
 def _stream_words(streams: torch.Tensor, rows: torch.Tensor):
-    """Flat words of (B, S) streams with one zero word after each, and the
-    first word of each row's stream for `rows` (R,) block indices."""
-    words = torch.nn.functional.pad(_pack_words(streams), (0, 1))
-    return words.reshape(-1), rows * words.shape[1]
+    """Flat words of (B, S) streams, the first word of each row's stream for
+    `rows` (R,) block indices, and the words a row."""
+    words = _pack_words(streams)
+    return words.reshape(-1), rows * words.shape[1], words.shape[1]
 
 
 def decode_sequences_chunks(
@@ -78,16 +93,18 @@ def decode_sequences_chunks(
     block, each chunk one row (the plain version of K7).
 
     streams (B, S) uint8 sequence bitstreams; total_bits (B,) data bits
-    (sentinel stripped); tables: SeqTables; nseq (B,); rep0 (B, 3) the rep
-    triple before sequence 0. Chunk 0 reads its LL, OF, ML states from the
-    stream head; chunk c >= 1 starts from checkpoint record c-1: ck_bits
+    (sentinel stripped); tables: SeqTables or PackedSeqTables; nseq (B,);
+    rep0 (B, 3) the rep triple before sequence 0. Chunk 0 reads its LL, OF,
+    ML states from the stream head; chunk c >= 1 starts from checkpoint
+    record c-1: ck_bits
     (B, K) unread-bit cursor, ck_states (B, K) packed ll | of<<10 | ml<<20,
     ck_rep (B, K, 3) rep triple (K >= num_chunks - 1 where a block has that
     many chunks). num_chunks = 1 is the serial decode of a whole block.
-    Offsets are resolved (RFC 8878 §3.1.1.5); states update after every
-    sequence but a block's last. Returns (ll, ml, off) (B, max_seqs) int32,
-    sequence j at column j, zero past nseq, and each row's final rep triple
-    (B * num_chunks, 3).
+    Offsets are resolved (RFC 8878 §3.1.1.5) in int32, wrapping as the JAX
+    package's do; states update after every sequence but a block's last and
+    index their table modulo TSIZE_MAX; offset codes above 31 read as 31.
+    Returns (ll, ml, off) (B, max_seqs) int32, sequence j at column j, zero
+    past nseq, and each row's final rep triple (B * num_chunks, 3).
     """
     B = streams.shape[0]
     NC = num_chunks
@@ -95,24 +112,22 @@ def decode_sequences_chunks(
     R = B * NC
     blk = torch.arange(B, device=dev).repeat_interleave(NC)
     cix = torch.arange(NC, device=dev).repeat(B)
-    words, wbase = _stream_words(streams, blk)
+    words, wbase, nw = _stream_words(streams, blk)
     nseq = nseq.to(torch.int64)
+    if not isinstance(tables, PackedSeqTables):
+        tables = pack_seq_tables(tables)
     tl = tables.table_log.to(torch.int64)[blk]
-    tab = (
-        tables.symbol.to(torch.int64)
-        | (tables.nb_bits.to(torch.int64) << 8)
-        | (tables.new_state.to(torch.int64) << 16)
-    ).reshape(-1)
+    tab = tables.packed.to(torch.int64).reshape(-1)
     tbase = (blk * 3)[:, None] * TSIZE_MAX + torch.arange(3, device=dev) * TSIZE_MAX
 
     bl = total_bits.to(torch.int64)[blk]
-    s_ll, bl = _read(words, wbase, bl, tl[:, 0])
-    s_of, bl = _read(words, wbase, bl, tl[:, 1])
-    s_ml, bl = _read(words, wbase, bl, tl[:, 2])
-    rep = rep0.to(torch.int64)[blk]
+    s_ll, bl = _read(words, wbase, nw, bl, tl[:, 0])
+    s_of, bl = _read(words, wbase, nw, bl, tl[:, 1])
+    s_ml, bl = _read(words, wbase, nw, bl, tl[:, 2])
+    rep = rep0.to(torch.int32)[blk]
     if NC > 1:
-        def rec(a, fill):
-            a = a.to(torch.int64)[:, : NC - 1]
+        def rec(a, fill, dtype=torch.int64):
+            a = a.to(dtype)[:, : NC - 1]
             pad = [0, 0] * (a.dim() - 2) + [1, NC - 1 - a.shape[1]]
             return torch.nn.functional.pad(a, pad, value=fill).reshape(R, *a.shape[2:])
 
@@ -122,7 +137,7 @@ def decode_sequences_chunks(
         s_ll = torch.where(first, s_ll, st & 0x3FF)
         s_of = torch.where(first, s_of, (st >> 10) & 0x3FF)
         s_ml = torch.where(first, s_ml, (st >> 20) & 0x3FF)
-        rep = torch.where(first[:, None], rep, rec(ck_rep, 1))
+        rep = torch.where(first[:, None], rep, rec(ck_rep, 1, torch.int32))
 
     # Code -> baseline | extra bits << 24, LL codes at 0.., ML codes at 64..
     vtab = torch.zeros(128, dtype=torch.int64, device=dev)
@@ -139,21 +154,21 @@ def decode_sequences_chunks(
     for t in range(steps):
         j = j0 + t
         active = j < nseq_r
-        p_ll = tab[tbase[:, 0] + s_ll]
-        p_of = tab[tbase[:, 1] + s_of]
-        p_ml = tab[tbase[:, 2] + s_ml]
-        ofc = p_of & 0xFF
+        p_ll = tab[tbase[:, 0] + (s_ll & (TSIZE_MAX - 1))]
+        p_of = tab[tbase[:, 1] + (s_of & (TSIZE_MAX - 1))]
+        p_ml = tab[tbase[:, 2] + (s_ml & (TSIZE_MAX - 1))]
+        ofc = torch.clamp(p_of & 0xFF, max=31)
         llv = vtab[torch.clamp(p_ll & 0xFF, max=len(LL_BASELINE) - 1)]
         mlv = vtab[64 + torch.clamp(p_ml & 0xFF, max=len(ML_BASELINE) - 1)]
-        ofx, b2 = _read(words, wbase, bl, torch.where(active, ofc, 0))
-        ofv = torch.where(ofc > 0, (1 << torch.clamp(ofc, max=30)) + ofx, 1)
+        ofx, b2 = _read(words, wbase, nw, bl, torch.where(active, ofc, 0))
+        ofv = torch.where(ofc > 0, (1 << torch.clamp(ofc, max=30)) + ofx, 1).to(torch.int32)
         # ML extra bits, then LL extra bits: one read of <= 32 bits.
         nb_l = llv >> 24
-        x, b2 = _read(words, wbase, b2, torch.where(active, (mlv >> 24) + nb_l, 0))
+        x, b2 = _read(words, wbase, nw, b2, torch.where(active, (mlv >> 24) + nb_l, 0))
         ml = (mlv & 0xFFFFFF) + (x >> nb_l)
         ll = (llv & 0xFFFFFF) + (x & ((1 << nb_l) - 1))
         r0, r1, r2 = rep[:, 0], rep[:, 1], rep[:, 2]
-        idx = ofv - 1 + (ll == 0).to(torch.int64)
+        idx = ofv - 1 + (ll == 0).to(torch.int32)
         off_rep = torch.where(idx == 0, r0, torch.where(
             idx == 1, r1, torch.where(idx == 2, r2, torch.clamp(r0 - 1, min=1))))
         is_lit = ofv > 3
@@ -164,7 +179,7 @@ def decode_sequences_chunks(
         # State bits, LL then ML then OF: one read of <= 26 bits.
         upd = active & (j < nseq_r - 1)
         nb_ll, nb_ml, nb_of = (p_ll >> 8) & 0xFF, (p_ml >> 8) & 0xFF, (p_of >> 8) & 0xFF
-        v, b2 = _read(words, wbase, b2, torch.where(upd, nb_ll + nb_ml + nb_of, 0))
+        v, b2 = _read(words, wbase, nw, b2, torch.where(upd, nb_ll + nb_ml + nb_of, 0))
         s_ll = torch.where(upd, (p_ll >> 16) + (v >> (nb_ml + nb_of)), s_ll)
         s_ml = torch.where(upd, (p_ml >> 16) + ((v >> nb_of) & ((1 << nb_ml) - 1)), s_ml)
         s_of = torch.where(upd, (p_of >> 16) + (v & ((1 << nb_of) - 1)), s_of)
@@ -181,7 +196,17 @@ def decode_sequences_chunks(
             return full[:, :max_seqs]
         return torch.nn.functional.pad(full, (0, max_seqs - NC * stride))
 
-    return layout(o_ll), layout(o_ml), layout(o_off), rep.to(torch.int32)
+    return layout(o_ll), layout(o_ml), layout(o_off), rep
+
+
+def final_rep(rep_rows: torch.Tensor, nseq: torch.Tensor, stride: int, num_chunks: int):
+    """Each block's rep triple after its last sequence, from the per-row
+    triples (B * num_chunks, 3) of `decode_sequences_chunks`: the row of
+    chunk min((max(nseq, 1) - 1) // stride, num_chunks - 1). (B, 3) int32."""
+    B = nseq.shape[0]
+    last = torch.clamp(nseq.to(torch.int64), min=1) - 1
+    cl = torch.clamp(last // stride, max=num_chunks - 1)
+    return rep_rows.reshape(B, num_chunks, 3)[torch.arange(B, device=cl.device), cl]
 
 
 def decode_sequences_device(streams, total_bits, tables: SeqTables, nseq, rep_init,
@@ -226,7 +251,7 @@ def decode_huffman_device(streams, total_bits, dtable, table_log, nsym, stride: 
     R = R0 * NC
     row = torch.arange(R0, device=dev).repeat_interleave(NC)
     cix = torch.arange(NC, device=dev).repeat(R0)
-    words, wbase = _stream_words(streams, row)
+    words, wbase, nw = _stream_words(streams, row)
     bl = total_bits.to(torch.int64)[row]
     if NC > 1:
         ck = ck_bits.to(torch.int64)[:, : NC - 1]
@@ -242,7 +267,7 @@ def decode_huffman_device(streams, total_bits, dtable, table_log, nsym, stride: 
     out = torch.zeros((steps, R), dtype=torch.int64, device=dev)
     for t in range(steps):
         active = j0 + t < nsym_r
-        idx, _ = _read(words, wbase, bl, tl)
+        idx, _ = _read(words, wbase, nw, bl, tl)
         e = dt[tbase + idx]
         bl = torch.where(active, bl - (e & 15), bl)
         out[t] = torch.where(active, e >> 4, 0)

@@ -7,10 +7,11 @@ csrc/decode_seq.cu). The TPU kernels put one checkpointed chunk per lane
 and stage per-chunk word slices of the stream, taking the next record as a
 chunk's end bound (forward-filled records made that bound wrong for about
 0.3 % of blocks). Here no record is ever a chunk's end: K7 runs one thread
-a chunk that reads its stream's own bytes in device memory by cursor; K6
-runs one warp a chunk that stages the chunk's stream words in shared memory
-and splits the chunk into self-synchronising sub-spans with an exact fix-up
-(the end record only places the lanes' starts).
+a chunk, 32 chunks a CTA, reading the stream words its CTA staged in shared
+memory (device memory outside them); K6 runs one warp a chunk that stages
+the chunk's stream words in shared memory and splits the chunk into
+self-synchronising sub-spans with an exact fix-up (the end record only
+places the lanes' starts).
 
 CPU tensors take the plain versions in ops/decode.py; CUDA tensors launch
 the kernels, or raise.
@@ -21,10 +22,20 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .decode import SeqTables, TSIZE_MAX, decode_huffman_device, decode_sequences_chunks
+from .decode import (
+    PackedSeqTables,
+    SeqTables,
+    TSIZE_MAX,
+    decode_huffman_device,
+    decode_sequences_chunks,
+    final_rep,
+    pack_seq_tables,
+)
 
-MAX_THREADS = 256  # K7's threads per CTA; a CTA loops when a block has more rows
 HUF_STATS = 6  # K6's counters per chunk
+SEQ_CPC = 32  # K7's chunks (threads that decode) a CTA
+SEQ_STAGE_WORDS = 16384  # K7's staged stream words a CTA (64 KB)
+SEQ_STATS = 2  # K7's counters per chunk
 
 
 def _i32(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -82,41 +93,69 @@ def decode_huffman_lanes(streams, total_bits, dtable, table_log, nsym, stride: i
     return out
 
 
-def decode_sequences_lanes(streams, total_bits, tables: SeqTables, nseq, rep0, ck_bits,
-                           ck_states, ck_rep, stride: int, num_chunks: int, max_seqs: int):
-    """FSE sequence decode, `stride` sequences per chunk, one chunk per
-    thread (K7); num_chunks = 1 (one thread per block, stride >= max nseq)
-    is the serial decode of frames without checkpoints.
+def decode_sequences_lanes(streams, total_bits, tables: SeqTables | PackedSeqTables, nseq, rep0,
+                           ck_bits, ck_states, ck_rep, stride: int, num_chunks: int,
+                           max_seqs: int, *, rep_fin: bool = False,
+                           stats: torch.Tensor | None = None):
+    """FSE sequence decode, `stride` sequences per chunk, one thread a chunk
+    and SEQ_CPC chunks a CTA (K7); num_chunks = 1 (stride >= max nseq) is
+    the serial decode of frames without checkpoints.
 
     Arguments as ops/decode.py `decode_sequences_chunks` (ck_* may have zero
-    columns when num_chunks = 1). Returns (ll, ml, off) (B, max_seqs) int32,
-    sequence j at column j, zero past nseq.
+    columns); tables packed once by the caller (`pack_seq_tables`) saves the
+    packing on every call. Returns (ll, ml, off) (B, max_seqs) int32,
+    sequence j at column j, zero past nseq, and with rep_fin also each
+    block's rep triple after its last sequence (B, 3) int32, as
+    `decode.final_rep` takes it from the plain version's rows.
+    stats, a (B * num_chunks, 2) int32 CUDA tensor (row-major over (block,
+    chunk)), receives per chunk the stream words its reads took from outside
+    the CTA's staged words and the sequences it decoded.
     """
     if streams.device.type == "cpu":
-        return decode_sequences_chunks(streams, total_bits, tables, nseq, rep0, ck_bits,
-                                       ck_states, ck_rep, stride, num_chunks, max_seqs)[:3]
+        if stats is not None:
+            raise ValueError("decode_sequences_lanes: stats are counted by the CUDA kernel only")
+        ll, ml, off, rows = decode_sequences_chunks(streams, total_bits, tables, nseq, rep0,
+                                                    ck_bits, ck_states, ck_rep, stride,
+                                                    num_chunks, max_seqs)
+        return (ll, ml, off, final_rep(rows, nseq, stride, num_chunks)) if rep_fin else (
+            ll, ml, off)
     B, S = streams.shape
     dev = streams.device
-    if tables.symbol.shape != (B, 3, TSIZE_MAX) or stride <= 0 or num_chunks <= 0:
-        raise ValueError(f"decode_sequences_lanes: tables {tuple(tables.symbol.shape)} for "
-                         f"{B} blocks, stride {stride}, chunks {num_chunks}")
+    if not isinstance(tables, PackedSeqTables):
+        tables = pack_seq_tables(tables)
+    if tables.packed.shape != (B, 3, TSIZE_MAX) or stride <= 0 or num_chunks <= 0 or (
+            max_seqs <= 0):
+        raise ValueError(f"decode_sequences_lanes: tables {tuple(tables.packed.shape)} for "
+                         f"{B} blocks, stride {stride}, chunks {num_chunks}, max_seqs {max_seqs}")
     streams = streams.contiguous()
     _kernels.check_cuda(streams, torch.uint8, "decode_sequences_lanes streams")
-    packed = (tables.symbol.to(torch.int32) | (tables.nb_bits.to(torch.int32) << 8)
-              | (tables.new_state.to(torch.int32) << 16))
-    K = ck_bits.shape[1] if ck_bits is not None and ck_bits.dim() == 2 else 0
-    if K == 0:
-        ck_bits = ck_states = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        ck_rep = torch.ones((B, 1, 3), dtype=torch.int32, device=dev)
+    if S % 16:  # the kernel stages 16-byte units; bytes past a row read as zeros
+        streams = torch.nn.functional.pad(streams, (0, -S % 16))
+        S = streams.shape[1]
     args = [_i32(x, f"decode_sequences_lanes {n}") for x, n in (
-        (total_bits, "total_bits"), (packed, "tables"), (tables.table_log, "table_log"),
-        (nseq, "nseq"), (rep0, "rep0"), (ck_bits, "ck_bits"), (ck_states, "ck_states"),
-        (ck_rep, "ck_rep"))]
-    outs = [torch.zeros((B, max_seqs), dtype=torch.int32, device=dev) for _ in range(3)]
+        (total_bits, "total_bits"), (tables.packed, "tables"), (tables.table_log, "table_log"),
+        (nseq, "nseq"), (rep0, "rep0"))]
+    K = ck_bits.shape[1] if ck_bits is not None and ck_bits.dim() == 2 else 0
+    if K:
+        recs = [_i32(x, f"decode_sequences_lanes {n}") for x, n in (
+            (ck_bits, "ck_bits"), (ck_states, "ck_states"), (ck_rep, "ck_rep"))]
+        if recs[1].shape != (B, K) or recs[2].shape != (B, K, 3):
+            raise ValueError(f"decode_sequences_lanes: records {[tuple(r.shape) for r in recs]}")
+    else:  # no records: the kernel reads none
+        recs = args[:1] * 3
+    outs = [torch.empty((B, max_seqs), dtype=torch.int32, device=dev) for _ in range(3)]
+    fin = torch.empty((B, 3), dtype=torch.int32, device=dev) if rep_fin else None
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "decode_sequences_lanes stats")
+        if stats.shape != (B * num_chunks, SEQ_STATS):
+            raise ValueError(f"decode_sequences_lanes: stats {tuple(stats.shape)} for "
+                             f"{B * num_chunks} chunks")
     if B:
         _kernels.launch(
             "decode_seq", "tz_decode_sequences",
-            streams.data_ptr(), *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
-            B, S, max(K, 1), stride, num_chunks, max_seqs, min(num_chunks, MAX_THREADS),
+            streams.data_ptr(), *(a.data_ptr() for a in args), *(r.data_ptr() for r in recs),
+            *(o.data_ptr() for o in outs), None if fin is None else fin.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, S, K, stride, num_chunks, max_seqs,
+            min(num_chunks, SEQ_CPC), min(S // 4, SEQ_STAGE_WORDS),
         )
-    return tuple(outs)
+    return (*outs, fin) if rep_fin else tuple(outs)

@@ -169,11 +169,10 @@ def find_matches(
     pos within 31 bits, and `block` on the card (on the CPU the sort route
     runs, as the JAX package's does off the TPU). The fused route gives 0 at
     dead positions, where the sort route's clamp leaves lengths under
-    min_match. It returns one band: two_band with use_pallas_match raises.
+    min_match. Like the JAX package's, it returns one band, (best_ml,
+    best_off), even when two_band asks for two; where it does not apply,
+    two_band takes the sort route's four outputs.
     """
-    if use_pallas_match and two_band:
-        raise ValueError("find_matches: the fused route (use_pallas_match) returns one "
-                         "candidate band; two_band is not available with it")
     B, N = block.shape
     dev = block.device
     if use_pallas_match and dev.type == "cuda" and fused_route_ok(N, hash_log, mf_win_log):

@@ -18,8 +18,11 @@ import torch
 from . import _kernels
 from .sort import sort_rows_plain
 
-# The kernel keeps a window's keys in shared memory, 4 bytes a position.
-MAX_WIDTH = 32768
+# The kernel keeps a window's keys in shared memory, 4 bytes a position:
+# 32768 positions (128 KB) are the most one CTA holds. Wider windows sort
+# their keys in tiles (csrc/bitonic.cuh) into a scratch row, and a second
+# kernel runs the compares.
+CTA_WIDTH = 32768
 
 
 def _word_inc(x: torch.Tensor) -> torch.Tensor:
@@ -88,9 +91,6 @@ def match_windows(key: torch.Tensor, words, depth: int,
     if key.device.type == "cpu":
         return match_windows_plain(key, words, depth, sentinel)
     R, W = key.shape
-    if W > MAX_WIDTH:
-        raise ValueError(f"match_windows: window width {W} exceeds the {MAX_WIDTH} keys a "
-                         "CTA's shared memory holds")
     if not torch.is_tensor(words):
         words = (torch.stack(list(words)) if len(words)
                  else torch.zeros((0, R, W), dtype=torch.int32, device=key.device))
@@ -102,6 +102,8 @@ def match_windows(key: torch.Tensor, words, depth: int,
     _kernels.check_cuda(words, torch.int32, "match_windows words")
     packed = torch.empty((R, W), dtype=torch.int32, device=key.device)
     if R:
+        skey = torch.empty_like(key) if W > CTA_WIDTH else None
         _kernels.launch("match", "tz_match_windows", key.data_ptr(), words.data_ptr(),
-                        packed.data_ptr(), R, plog, words.shape[0], depth, sentinel)
+                        packed.data_ptr(), None if skey is None else skey.data_ptr(), R, plog,
+                        words.shape[0], depth, sentinel)
     return packed >> plog, packed & (W - 1)

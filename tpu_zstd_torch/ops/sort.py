@@ -3,10 +3,11 @@
 
 Counterpart of tpu_zstd/ops/pallas_sort.py `sort_rows`; the kernel is
 csrc/sort.cu, whose bitonic network (csrc/bitonic.cuh) also sorts inside K13
-(ops/match.py). Operands are int32 (..., W) with W a power of two >= 1024;
-leading axes flatten into rows, as the JAX package's custom vmap does. Keys
-must be unique within a row (ties would route payloads in an order the
-network does not define) and compare as signed int32.
+(ops/match.py). Operands are int32 (..., W) with W a power of two >= 1024
+(the kernel takes widths up to 2^30); leading axes flatten into rows, as
+the JAX package's custom vmap does. Keys must be unique within a row (ties
+would route payloads in an order the network does not define) and compare
+as signed int32.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 from . import _kernels
 
 # The kernel keeps a row's key and slot index in shared memory, 8 bytes a
-# column: 16384 columns (128 KB) are the most one CTA holds.
-MAX_WIDTH = 16384
+# column: 16384 columns (128 KB) are the most one CTA holds. Wider rows sort
+# in tiles of that width, with the stages across tiles in device memory.
+CTA_WIDTH = 16384
 
 
 def sortable(width: int) -> bool:
@@ -49,9 +51,6 @@ def sort_rows(*ops: torch.Tensor) -> tuple[torch.Tensor, ...]:
         raise ValueError(f"sort_rows: operand shapes differ: {[tuple(o.shape) for o in ops]}")
     if ops[0].device.type == "cpu":
         return sort_rows_plain(*ops)
-    if W > MAX_WIDTH:
-        raise ValueError(f"sort_rows: row width {W} exceeds the {MAX_WIDTH} columns a CTA's "
-                         "shared memory holds")
     flat = [o.reshape(-1, W).to(torch.int32).contiguous() for o in ops]
     for k, o in enumerate(flat):
         _kernels.check_cuda(o, torch.int32, f"sort_rows operand {k}")
@@ -59,12 +58,14 @@ def sort_rows(*ops: torch.Tensor) -> tuple[torch.Tensor, ...]:
     outs = [torch.empty_like(o) for o in flat]
     if R:
         dev = flat[0].device
+        slot = torch.empty_like(flat[0]) if W > CTA_WIDTH else None
         pay_in = torch.tensor([o.data_ptr() for o in flat[1:]] or [0], dtype=torch.int64,
                               device=dev)
         pay_out = torch.tensor([o.data_ptr() for o in outs[1:]] or [0], dtype=torch.int64,
                                device=dev)
         _kernels.launch("sort", "tz_sort_rows", flat[0].data_ptr(), outs[0].data_ptr(),
-                        pay_in.data_ptr(), pay_out.data_ptr(), len(flat) - 1, R,
+                        pay_in.data_ptr(), pay_out.data_ptr(),
+                        None if slot is None else slot.data_ptr(), len(flat) - 1, R,
                         W.bit_length() - 1)
     return tuple(o.reshape(shape) for o in outs)
 
