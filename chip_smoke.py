@@ -35,7 +35,16 @@ Phases, in order; any failure exits non-zero:
    sequences, output filling N); K4 also the hard rows of `rep_hard_rows`
    (a block alternating two offsets, ll == 0 repcode 3, invalid rows
    scattered, nseq 0, row counts off the chunk), with the counters each
-   redesigned kernel keeps (doubling rounds, chunks that met); K10 seeded
+   redesigned kernel keeps (doubling rounds, chunks that met); K3 also the
+   hard segments of tests/torch_cases.py `greedy_hard_packed` (whole-segment
+   matches, every position matched, all literals, defer on every match,
+   walks that never meet) at 16384 + 13 segments of 1024 and at segment
+   widths 64, 100, 1000 and 7, with their times; K5 also the hard calls of
+   `chain_hard_inputs` (msb 128 to 32768, nseq 0-2, 128-130, msb - 1 and
+   msb, RLE rows, table logs 5 and 6, S = 1 and 64, a 63-state symbol whose
+   walks never meet, alone too) and `chain_garbage_inputs` (tables outside
+   the encoder's contract), with the passes a row (max and mean), rows that
+   took the transfer maps or the 64-bit walk, and times; K10 seeded
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
    rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
    per 16 rows); K12 on unique keys spanning negative values with 0-3
@@ -102,8 +111,11 @@ Phases, in order; any failure exits non-zero:
    in one batch (`bound_ms_per_batch`); K4's, K6's, K7's and K8/K9's
    counters on the main paths' inputs (chunks or lanes that met their
    speculative walk, fix-up rounds; sequences a chunk walked and words not
-   staged; pointer-doubling rounds a tile); K1's, K6's and K7's device time
-   (torch.profiler) beside their CUDA-event time.
+   staged; pointer-doubling rounds a tile), K5's (passes a row); K1's,
+   K3's, K5's, K6's and K7's device time (torch.profiler) beside their
+   CUDA-event time, and K3's and K5's time by CUDA events with the calls
+   queued behind a spin kernel (no host cost between them); K5 also as the
+   path calls it (int64 operands).
 
 Stock libzstd (`zstandard`) decodes the frames where it is installed; where
 it is not, the run says so once and golden identity stands in for it.
@@ -165,6 +177,25 @@ def _time_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _queued_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call by CUDA events, with the calls queued
+    behind a ~5 ms spin kernel so that the host's cost of a call does not
+    space them out: the device's time for back-to-back calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10**7)
     start.record()
     for _ in range(iters):
         fn()
@@ -306,7 +337,8 @@ def main() -> int:
     # CUDA-event time: their short launches run back to back no faster than
     # the host issues them.
     KERNEL_SYMBOL = {"roll": "roll_kernel", "decode_huf": "decode_huffman_kernel",
-                     "decode_seq": "decode_sequences_kernel"}
+                     "decode_seq": "decode_sequences_kernel", "greedy": "greedy_segments_kernel",
+                     "chain": "state_chain3_kernel"}
     max_err = {k: 0 for k in K}
 
     def chain_live(out, nseq):
@@ -357,10 +389,13 @@ def main() -> int:
         walk, symbols they re-walked before meeting, lanes that never met,
         fix-up rounds, symbols re-walked in all rounds, symbols decoded in
         series past the last lane) or K7 (per chunk: stream words read
-        outside its CTA's staged words, sequences decoded) keep when handed
-        a stats tensor."""
+        outside its CTA's staged words, sequences decoded) or K5 (per row:
+        passes, steps walked, transfer maps, 64-bit walk) keep when handed a
+        stats tensor."""
         if name == "rep":
             shape = (args[0].shape[0], 5)
+        elif name == "chain":
+            shape = (args[6].shape[0], chain.STATS)
         elif name == "decode_seq":
             shape = (args[0].shape[0] * args[9], decode_lanes.SEQ_STATS)
         elif name == "exec":
@@ -370,6 +405,15 @@ def main() -> int:
         st = torch.zeros(shape, dtype=torch.int32, device=dev)
         K[name][0](*args, **kw, stats=st)
         return st.cpu()
+
+    def chain_counters(st):
+        """K5's counters over the rows: passes a row (max, mean), steps
+        walked, rows that took the transfer maps or the 64-bit walk."""
+        st = st.to(torch.int64)
+        return {"rows": st.shape[0], "passes_max": int(st[:, 0].max()),
+                "passes_mean": round(float(st[:, 0].double().mean()), 3),
+                "steps": int(st[:, 1].sum()), "map_rows": int(st[:, 2].sum()),
+                "slow_rows": int(st[:, 3].sum())}
 
     def seq_counters(st):
         """K7's counters summed over the chunks."""
@@ -429,6 +473,19 @@ def main() -> int:
     matched = (rng.random((S, seg)) < 0.4) & (step >= 4)
     defer = (rng.random((S, seg)) < 0.1) & matched
     hold("greedy", (cu((step | matched << 11 | defer << 12).astype(np.int32)),), "(16384, 1024)")
+    # K3's hard segments (tests/torch_cases.py greedy_hard_packed): at the
+    # main shape plus a CTA that is not full, and at segment widths that
+    # take its byte stores (100, 1000) and 4-byte copies (7).
+    for nseg, sw in ((S + 13, seg), (77, 64), (9, 100), (5, 1000), (3, 7)):
+        gh = cu(torch_cases.greedy_hard_packed(22, nseg, sw))
+        hold("greedy", (gh,), f"hard ({nseg}, {sw})")
+        if nseg > S:
+            run_g = lambda: greedy.greedy_segments(gh)  # noqa: E731
+            print(f"time [{card}]: K3 hard segments ({nseg}, {sw}) {_time_ms(run_g, 20):.4f} ms, "
+                  f"queued {_queued_ms(run_g, 20):.4f} ms, "
+                  f"on the device {_fmt_ms(_device_ms(run_g, 20, KERNEL_SYMBOL['greedy']))}, "
+                  f"bound {5 * gh.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del gh
     rows = 32768
     offs = np.where(rng.random((B, rows)) < 0.5, rng.integers(1, 6, (B, rows)),
                     rng.integers(1, 1 << 21, (B, rows)))
@@ -458,8 +515,30 @@ def main() -> int:
         rsym = torch.multinomial(p, msb, replacement=True, generator=gen)
         nseq = cu(rng.integers(0, msb + 1, R))
         rle = cu(rng.random(R) < 0.05)
-        hold("chain", (st, dnb, dfs, init, torch.full((R,), 6, device=dev), rle, rsym, nseq),
-             f"({R}, {msb})")
+        cargs = (st, dnb, dfs, init, torch.full((R,), 6, device=dev), rle, rsym, nseq)
+        hold("chain", cargs, f"({R}, {msb})")
+        print(f"phase 2: K5 seeded ({R}, {msb}) counters: "
+              f"{chain_counters(kernel_stats('chain', cargs, {}))}")
+    # K5's hard calls (tests/torch_cases.py chain_hard_inputs) and tables
+    # outside the encoder's contract (chain_garbage_inputs); the 63-state row
+    # whose walks never meet (row 4 of the first call) also alone, at the
+    # cap and at the bench batch's bucket width.
+    hard_calls = [("hard", c) for c in torch_cases.chain_hard_inputs()]
+    lone = {k: v[4:5] for k, v in hard_calls[0][1].items()}
+    hard_calls.append(("non-contracting row alone", lone))
+    hard_calls.append(("non-contracting row alone",
+                       {**lone, "rsym": lone["rsym"][:, :21760], "nseq": np.array([21760])}))
+    hard_calls += [("garbage", c) for c in torch_cases.chain_garbage_inputs()]
+    for label, c in hard_calls:
+        cargs = tuple(cu(c[k]) for k in torch_cases.CHAIN_KEYS)
+        shape = f"({cargs[6].shape[0]}, {cargs[6].shape[1]}) S {cargs[1].shape[1]}"
+        hold("chain", cargs, f"{label} {shape}")
+        run_c = lambda: chain.state_chain3(*cargs)  # noqa: E731
+        print(f"phase 2: K5 {label} {shape} counters: "
+              f"{chain_counters(kernel_stats('chain', cargs, {}))}; {_time_ms(run_c, 10):.4f} ms, "
+              f"queued {_queued_ms(run_c, 10):.4f} ms, "
+              f"on the device {_fmt_ms(_device_ms(run_c, 10, KERNEL_SYMBOL['chain']))}")
+    del cargs
 
     # --- recording the inputs a path hands the kernels ---------------------------------
     def key_of(x):
@@ -1177,8 +1256,12 @@ def main() -> int:
             start = torch.clamp(torch.cumsum(c, 1) - c, max=out_len)
             moved = int(torch.minimum(c, out_len - start).sum())
             nb = moved * 4 + nbytes(off) + nbytes(cnt) + nbytes(out)
-        elif name == "chain":  # int32 operands as the kernel reads them
-            nb = (sum(a.numel() for a in args) + sum(o.numel() for o in out)) * 4
+        elif name == "chain":  # int32 operands; the symbols up to the live end
+            rsym_a, nseq_a = args[6], args[7].to(torch.int64)
+            live = torch.where(args[5].to(torch.bool), 0, torch.clamp(nseq_a - 1, 0,
+                                                                      rsym_a.shape[1]))
+            nb = (sum(a.numel() for a in args[:6]) + int(live.sum()) + rsym_a.shape[0]
+                  + nseq_a.numel() + sum(o.numel() for o in out)) * 4
         elif name == "decode_huf":  # streams, tables, records in; symbols out
             _, tbits, _, tl, nsym, _, _, ck = args
             nb = (stream_bytes(tbits) + 4 * int((1 << tl.to(torch.int64)).sum())
@@ -1264,7 +1347,8 @@ def main() -> int:
         for key, (args, kw, n_calls) in sorted(
                 all_captured[name].items(),
                 key=lambda kv: -sum(nbytes(a) for a in kv[1][0] if torch.is_tensor(a))):
-            if name == "chain":  # the wrapper's int32 copies are not the kernel's time
+            if name == "chain":  # timed with int32 operands; raw_args as the path passes them
+                raw_args = args
                 args = tuple(a.to(torch.int32).contiguous() for a in args)
             if name in ("deposit", "sort", "match"):  # kept on the host since phase 4d
                 args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
@@ -1280,16 +1364,26 @@ def main() -> int:
                 dev_ms = _device_ms(lambda: kern(*args, **kw), 20, KERNEL_SYMBOL[name])
                 dev_batch = None if dev_ms is None or dev_batch is None else (
                     dev_batch + n_calls * dev_ms)
+            q_ms = _queued_ms(lambda: kern(*args, **kw), 20) if name in ("greedy", "chain") else None
             print(f"kernel [{card}] {name} {shape} x{n_calls}/batch: {ms:.4f} ms"
                   + (f" (on the device {_fmt_ms(dev_ms)})" if name in KERNEL_SYMBOL else "")
+                  + (f" (queued {q_ms:.4f} ms)" if q_ms is not None else "")
                   + f", bound {b_ms:.4f} ms, plain {plain_ms:.3f} ms")
-            if name in ("rep", "exec", "decode_huf", "decode_seq"):  # redesigned kernels' counters
+            if name == "chain":  # as the path calls it: int64 operands, bool rle
+                print(f"kernel [{card}] {name} {shape} as the path calls it "
+                      f"({raw_args[6].dtype} symbols): "
+                      f"{_time_ms(lambda: kern(*raw_args), 20):.4f} ms, queued "
+                      f"{_queued_ms(lambda: kern(*raw_args), 20):.4f} ms")
+            if name in ("rep", "exec", "decode_huf", "decode_seq", "chain"):  # counters
                 st = kernel_stats(name, args, kw).to(torch.int64)
                 if name == "decode_huf":
                     got = huf_counters(args, st)
                 elif name == "decode_seq":
                     got = {k2.replace("longest_chain", "longest_chain_max"): v
                            for k2, v in seq_counters(st).items()}
+                elif name == "chain":
+                    got = chain_counters(st)
+                    got["passes_sum"] = int(st[:, 0].sum())
                 elif name == "rep":
                     got = {"chunks": int(st[:, 0].sum()), "chunks_unmet": int(st[:, 1].sum()),
                            "fixup_rounds_max": int(st[:, 2].max()),
@@ -1300,6 +1394,8 @@ def main() -> int:
                            "doubling_rounds_max_tile": int(st[:, 2].max())}
                 print(f"kernel [{card}] {name} {shape} counters: {got}")
                 for k2, v in got.items():  # over the shapes: most of a max, else the sum
+                    if k2 == "passes_mean":
+                        continue
                     c = counters.get(k2, 0)
                     counters[k2] = max(c, v) if "_max" in k2 else c + v
             if row is None or key[0][0] == ((B, N), "torch.uint8") or key == rep_key.get(name):
@@ -1309,6 +1405,7 @@ def main() -> int:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None, "shape": shape,
                     **({"device_ms": dev_ms} if name in KERNEL_SYMBOL else {}),
+                    **({"queued_ms": q_ms} if q_ms is not None else {}),
                     "launches_slice1": launches1.get(name, 0),
                     "launches_level19": launches19.get(name, 0),
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),

@@ -5,8 +5,10 @@ of decode_accel frames on the card against the input, and the fused match
 route (K13) against the CPU's, also with two_band and with 64 KB windows; K7
 also on its hard inputs (tests/torch_cases.py seq_hard_inputs, and with
 scrambled records) with its final rep triple, K12 also past one CTA's
-width. Skips without one: a CUDA kernel has no CPU mode. Integer outputs:
-exact equality; the K5 state chains on their live range, the decode kernels
+width, K3 and K5 also on their hard inputs (greedy_hard_packed,
+chain_hard_inputs, chain_garbage_inputs). Skips without one: a CUDA kernel
+has no CPU mode. Integer outputs: exact equality; the K5 state chains on
+their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
 tests/test_torch_*.py files.)
 """
@@ -59,10 +61,15 @@ def test_cuda_kernels_match_plain():
     for rows in (2100, 32768 + 77):  # K4's hard rows (one block never meets)
         p = _t(torch_cases.rep_hard_rows(rows, rows)).to(dev)
         assert torch.equal(rep.rep_codes(p), rep.rep_codes_plain(p)), rows
-    for name in ("chain_sequences", "chain_weights"):
-        i = torch_cases.CASES[name].inputs()
-        keys = ("st", "dnb", "dfs", "init", "tl", "rle", "rsym", "nseq")
-        args = [_t(i[k]).to(dev) for k in keys]
+    for nseg, sw in ((45, 1024), (77, 64), (9, 100), (5, 1000), (3, 7)):  # K3's hard segments
+        packed = _t(torch_cases.greedy_hard_packed(4, nseg, sw)).to(dev)
+        assert torch.equal(greedy.greedy_segments(packed), greedy.greedy_segments_plain(packed))
+    chain_calls = [(name, torch_cases.CASES[name].inputs())
+                   for name in ("chain_sequences", "chain_weights")]
+    chain_calls += [("hard", c) for c in torch_cases.chain_hard_inputs()]  # K5's hard calls
+    chain_calls += [("garbage", c) for c in torch_cases.chain_garbage_inputs()]
+    for name, i in chain_calls:
+        args = [_t(i[k]).to(dev) for k in torch_cases.CHAIN_KEYS]
         got = torch_cases._chain_live(*(x.cpu() for x in chain.state_chain3(*args)), i["nseq"])
         want = torch_cases._chain_live(*(x.cpu() for x in chain.state_chain3_plain(*args)),
                                        i["nseq"])

@@ -41,7 +41,8 @@ import zstandard
 
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
-    "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "greedy", "rep", "rep_hard",
+    "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "greedy", "greedy_hard", "rep",
+                "rep_hard",
                 "decode_sequences_serial", "decode_sequences_chunked", "decode_sequences_hard",
                 "decode_huffman",
                 "decode_huffman_hard",
@@ -58,7 +59,7 @@ TOPICS = {
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
     "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
                    "choose_tables_of", "choose_tables_ml", "format_decode"],
-    "chains_encode": ["chain_sequences", "chain_weights", "prepare_sequences_auto",
+    "chains_encode": ["chain_sequences", "chain_weights", "chain_hard", "prepare_sequences_auto",
                       "encode_prepared", "encode_prepared_ckpt"],
     "huffman_stages": ["huffman_histogram", "huffman_lengths", "huffman_codes",
                        "huffman_weights_header", "huffman_weights_fse", "huffman_4stream",

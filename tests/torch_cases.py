@@ -253,6 +253,61 @@ def _greedy_ref(i):
 case("greedy", "kernels", _greedy_inputs, _greedy_port, _greedy_ref)
 
 
+def greedy_hard_segments(seed: int, nseg: int, seg: int):
+    """(step, matched, defer) of nseg segments (nseg, seg) that are hard for
+    K3, in a cycle of eight patterns: one match covering the whole segment
+    (step = seg - p everywhere); every position matched with steps of 4 up to
+    the segment's end; all literals; defer on every match; every position
+    matched with step 4 (walks started a position apart never meet); step 7
+    with defer on every third; random (40 % matched, 10 % deferred); and
+    matches running exactly to the segment's end near it."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(seg)
+    rest = seg - p  # the longest step that stays in the segment
+    step = np.ones((nseg, seg), np.int64)
+    matched = np.zeros((nseg, seg), bool)
+    defer = np.zeros((nseg, seg), bool)
+    for k in range(nseg):
+        kind = k % 8
+        if kind == 0:
+            step[k], matched[k] = rest, True
+        elif kind == 1:
+            step[k] = np.minimum(rng.integers(4, seg + 1, seg), rest)
+            matched[k] = True
+        elif kind == 3:
+            step[k] = np.minimum(rng.integers(1, 40, seg), rest)
+            matched[k] = rng.random(seg) < 0.4
+            defer[k] = matched[k]
+        elif kind == 4:
+            step[k], matched[k] = np.minimum(4, rest), True
+        elif kind == 5:
+            step[k], matched[k], defer[k] = np.minimum(7, rest), True, p % 3 == 0
+        elif kind == 6:
+            step[k] = np.minimum(rng.integers(1, 40, seg), rest)
+            matched[k] = (rng.random(seg) < 0.4) & (step[k] >= 4)
+            defer[k] = (rng.random(seg) < 0.1) & matched[k]
+        elif kind == 7:
+            step[k] = np.where(p >= seg - 50, rest, np.minimum(rng.integers(1, 40, seg), rest))
+            matched[k] = rng.random(seg) < 0.5
+    return step.astype(np.int32), matched, defer
+
+
+def greedy_hard_packed(seed: int, nseg: int, seg: int) -> np.ndarray:
+    """greedy_hard_segments packed as K3 reads them: (nseg, seg) int32."""
+    step, matched, defer = greedy_hard_segments(seed, nseg, seg)
+    return (step | matched.astype(np.int32) << 11 | defer.astype(np.int32) << 12).astype(np.int32)
+
+
+def _greedy_hard_inputs():
+    seg, nseg = 1024, 45  # no multiple of K3's 32 segments a CTA
+    step, matched, defer = greedy_hard_segments(21, nseg, seg)
+    return {"step": step.reshape(-1), "matched": matched.reshape(-1),
+            "defer": defer.reshape(-1), "seg": seg}
+
+
+case("greedy_hard", "kernels", _greedy_hard_inputs, _greedy_port, _greedy_ref)
+
+
 def _rep_inputs():
     rng = np.random.default_rng(11)
     S, rows = 3, 600
@@ -679,6 +734,151 @@ def _chain_ref(i):
 
 case("chain_sequences", "fse_custom", _chain_inputs("seq"), _chain_port, _chain_ref)
 case("chain_weights", "fse_custom", _chain_inputs("weights"), _chain_port, _chain_ref)
+
+
+CHAIN_KEYS = ("st", "dnb", "dfs", "init", "tl", "rle", "rsym", "nseq")
+
+
+def _cf_tables(norm: np.ndarray):
+    from tpu_zstd_torch.ops import fse_tables
+
+    return [x.numpy() for x in fse_tables.build_cf_tables(torch.from_numpy(norm))]
+
+
+def chain_hard_inputs(seed: int = 31) -> list[dict]:
+    """State-chain calls (state_chain3's operands, numpy) hard for K5:
+
+    - msb 32768 (256 chunks, the cap), 53 symbols: custom tables with nseq
+      msb and msb - 1; the predefined OF (table log 5) and LL (log 6) tables
+      with nseq 130 and 129; an RLE row; a symbol holding 63 of the 64 states
+      and every symbol that one (its transitions only shift the state: walks
+      from different entries never meet), the same with the 1-state symbol
+      drawn as often as its count says, a symbol holding all 64 states
+      (identity transitions); nseq 0, 1, 2 and 128;
+    - msb 128, 13 symbols (the Huffman-weight shape): nseq 0, 1, 2, 127, 128,
+      an RLE row, the 63-state symbol;
+    - msb 1024 with S = 1 (the one symbol holds all 64 states);
+    - msb 2048 with S = 64: one state each, random counts, the 63-state
+      symbol, nseq 2048, 2047 and 1000.
+    Symbols are drawn where the table has states."""
+    from tpu_zstd_torch.ops import fse_tables
+
+    rng = np.random.default_rng(seed)
+
+    def rand_norm(S, R):
+        cnt = np.stack([np.bincount(np.minimum(rng.geometric(rng.uniform(0.05, 0.5), 400), S - 1),
+                                    minlength=S) for _ in range(R)])
+        return fse_tables.normalize_64(torch.from_numpy(cnt),
+                                       torch.from_numpy(cnt.sum(1))).numpy()
+
+    def draw(norm, msb):
+        p = norm / norm.sum()
+        return rng.choice(len(norm), msb, p=p)
+
+    def block(norms, msb, nseq, rle=None, tl=None, tabs=None, rsym=None):
+        R, S = len(norms), norms.shape[1]
+        st, dnb, dfs, init = _cf_tables(norms) if tabs is None else tabs
+        if rsym is None:
+            rsym = np.stack([draw(norms[r], msb) for r in range(R)])
+        return {"st": st, "dnb": dnb, "dfs": dfs, "init": init,
+                "tl": np.full(R, 6) if tl is None else np.asarray(tl),
+                "rle": np.zeros(R, bool) if rle is None else np.asarray(rle),
+                "rsym": rsym.astype(np.int64), "nseq": np.asarray(nseq)}
+
+    def shift(S):  # a symbol holding 63 states, one holding 1
+        n = np.zeros(S, np.int64)
+        n[0], n[1] = 63, 1
+        return n
+
+    calls = []
+    # msb 32768, S 53.
+    S, msb = 53, 32768
+    norms = rand_norm(S, 12)
+    norms[4] = shift(S)
+    norms[5] = shift(S)
+    norms[6] = 0
+    norms[6, 3] = 64
+    st, dnb, dfs, init = _cf_tables(norms)
+    rsym = np.stack([draw(norms[r], msb) for r in range(12)])
+    rsym[4] = 0  # only the 63-state symbol
+    ll, of = fse_tables.stream_specs()[:2]
+    tl = np.full(12, 6)
+    for r, spec in ((2, of), (3, ll)):  # predefined tables, padded to S
+        st[r], tl[r] = spec.pred_st, spec.pred_log
+        for name, dst in (("pred_dnb", dnb), ("pred_dfs", dfs), ("pred_init", init)):
+            dst[r] = 0
+            dst[r, :spec.nsym] = getattr(spec, name)
+        pn = np.zeros(S)
+        pn[:spec.nsym] = spec.pred_valid_mask
+        rsym[r] = rng.choice(S, msb, p=pn / pn.sum())
+    rle = np.zeros(12, bool)
+    rle[11] = True  # an RLE stream: table log 0, zero tables
+    st[11], dnb[11], dfs[11], init[11], tl[11] = 0, 0, 0, 0, 0
+    calls.append(block(norms, msb, [msb, msb - 1, 130, 129, msb, msb, 20000, 0, 1, 2, 128, 5000],
+                       rle=rle, tl=tl, tabs=(st, dnb, dfs, init), rsym=rsym))
+    # msb 128, S 13 (the Huffman weights).
+    norms = rand_norm(13, 8)
+    norms[6] = shift(13)
+    b = block(norms, 128, [0, 1, 2, 127, 128, 128, 128, 77], rle=[0, 0, 0, 0, 0, 1, 0, 0])
+    b["rsym"][6] = 0
+    calls.append(b)
+    # S = 1: the one symbol holds all 64 states.
+    calls.append(block(np.full((3, 1), 64), 1024, [1024, 500, 0]))
+    # S = 64.
+    norms = rand_norm(64, 5)
+    norms[0] = 1
+    norms[1] = shift(64)
+    b = block(norms, 2048, [2048, 2048, 2047, 1000, 2048])
+    b["rsym"][1] = 0
+    calls.append(b)
+    return calls
+
+
+def chain_garbage_inputs(seed: int = 32) -> list[dict]:
+    """State-chain calls whose tables lie outside the encoder's contract:
+    random int32 st, dnb, dfs and init, table logs 0-40, symbols outside
+    [0, S), nseq past msb. Only the kernel and its plain version are held
+    equal on them (the JAX package computes in 32 bits)."""
+    rng = np.random.default_rng(seed)
+    calls = []
+    for R, S, msb in ((6, 7, 256), (3, 64, 1024)):
+        def i32(*shape):
+            return rng.integers(-2**31, 2**31, shape)
+        calls.append({"st": i32(R, 64), "dnb": i32(R, S), "dfs": i32(R, S), "init": i32(R, S),
+                      "tl": rng.integers(0, 41, R), "rle": np.zeros(R, bool),
+                      "rsym": rng.integers(-5, S + 5, (R, msb)),
+                      "nseq": rng.integers(0, msb + 3, R)})
+    # In-contract tables whose st strays by one entry, and an init past 64.
+    norms = np.zeros((2, 13), np.int64)
+    norms[:, :4] = 16
+    st, dnb, dfs, init = _cf_tables(norms)
+    st[0, 5] = 200
+    init[1] = 70
+    calls.append({"st": st, "dnb": dnb, "dfs": dfs, "init": init, "tl": np.full(2, 6),
+                  "rle": np.zeros(2, bool), "rsym": rng.integers(0, 4, (2, 512)),
+                  "nseq": np.array([512, 300])})
+    return calls
+
+
+def _chain_hard_inputs():
+    return {"calls": chain_hard_inputs()}
+
+
+def _chain_hard_port(i):
+    out = {}
+    for k, call in enumerate(i["calls"]):
+        out.update({f"{n}_{k}": v for n, v in _chain_port(call).items()})
+    return out
+
+
+def _chain_hard_ref(i):
+    out = {}
+    for k, call in enumerate(i["calls"]):
+        out.update({f"{n}_{k}": v for n, v in _chain_ref(call).items()})
+    return out
+
+
+case("chain_hard", "fse_custom", _chain_hard_inputs, _chain_hard_port, _chain_hard_ref)
 
 
 def _auto_inputs():

@@ -44,7 +44,7 @@ SIGNATURES = {
     "tz_concat_varlen": (P, P, P, P, I32, I32, I32, I32, P),
     "tz_greedy_segments": (P, P, I64, I32, P),
     "tz_rep_codes": (P, P, P, I32, I32, P),
-    "tz_state_chain3": (P,) * 11 + (I32, I32, I32, P),
+    "tz_state_chain3": (P,) * 7 + (I32, P, I32) + (P,) * 4 + (I32, I32, I32, P),
     "tz_decode_huffman": (P,) * 8 + (I32,) * 5 + (P,),
     "tz_decode_sequences": (P,) * 14 + (I32,) * 8 + (P,),
     "tz_exec_sequences": (P,) * 13 + (I32,) * 6 + (P,),

@@ -25,6 +25,14 @@ pre (R, msb) the state before it, nb (R, msb) its bit count, both valid for
 last live step (0 on RLE rows). Entries outside the live range are
 unspecified and differ between the kernel, this plain version and the JAX
 package; callers mask them.
+
+Both versions read every operand as int32 (the kernel reads int32, int64
+and bool operands as the caller holds them and converts as .to(torch.int32)
+does) and compute a step in 64-bit integers, so they agree on every
+table, also one outside the encoder's contract (st outside [ts, 2 ts)).
+The kernel's design (a transition table, staged symbols, trajectories with
+fix-up rounds that stop where a walk meets the recorded one, transfer maps
+for rows that do not contract) is described in csrc/chain.cu.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ CHUNK = 128        # serial steps per chunk (one CUDA thread each)
 MAX_CHUNKS = 256   # msb <= 32768
 TS_MAX = 64        # state-table entries per row
 S_MAX = 64         # symbols per row
+STATS = 4          # kernel counters per row (see state_chain3)
 
 
 def _prepare(st, dnb, dfs, init, tl, rle, rsym, nseq):
@@ -65,15 +74,15 @@ def state_chain3_plain(st, dnb, dfs, init, tl, rle, rsym, nseq):
     S = dnb.shape[1]
     nc = msb // CHUNK
     dev = rsym.device
-    st, dnb, dfs, init = (x.to(torch.int64) for x in (st, dnb, dfs, init))
-    rle = rle.to(torch.bool)
-    nseq = nseq.to(torch.int64)
-    ts = (1 << tl.to(torch.int64))[:, None]
-    sym0 = torch.clamp(rsym[:, :1].to(torch.int64), 0, S - 1)
+    st, dnb, dfs, init, tl, nseq, rsym = (
+        x.to(torch.int32).to(torch.int64) for x in (st, dnb, dfs, init, tl, nseq, rsym))
+    rle = rle.to(torch.int32) != 0
+    ts = (1 << tl)[:, None]
+    sym0 = torch.clamp(rsym[:, :1], 0, S - 1)
     init_k = torch.where(rle, 0, init.gather(1, sym0)[:, 0])
 
     # Step s consumes rsym[s + 1]; lay steps out as (rows, chunks, CHUNK).
-    st_sym = torch.clamp(torch.roll(rsym.to(torch.int64), -1, 1), 0, S - 1)
+    st_sym = torch.clamp(torch.roll(rsym, -1, 1), 0, S - 1)
     dnb_s = dnb.gather(1, st_sym).reshape(R, nc, CHUNK)
     dfs_s = dfs.gather(1, st_sym).reshape(R, nc, CHUNK)
     t = torch.arange(msb, device=dev).reshape(nc, CHUNK)
@@ -112,16 +121,39 @@ def state_chain3_plain(st, dnb, dfs, init, tl, rle, rsym, nseq):
     return pre.to(torch.int32), fin.to(torch.int32), nb.to(torch.int32)
 
 
-def state_chain3(st, dnb, dfs, init, tl, rle, rsym, nseq):
+def state_chain3(st, dnb, dfs, init, tl, rle, rsym, nseq, stats=None):
     """FSE state chains of R rows (see the module docstring). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel.
+
+    stats: optional (R, STATS) int32 CUDA tensor; the kernel writes per row
+    its passes (pass 1 plus the fix-up rounds in which a chunk of the row
+    re-walked), the steps walked in them, 1 if the row took the transfer
+    maps and 1 if it took the 64-bit walk (a table outside the contract).
+    """
     if rsym.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("state_chain3: stats are the CUDA kernel's counters")
         return state_chain3_plain(st, dnb, dfs, init, tl, rle, rsym, nseq)
     _prepare(st, dnb, dfs, init, tl, rle, rsym, nseq)
     R, msb = rsym.shape
-    args = [x.to(torch.int32).contiguous() for x in (st, dnb, dfs, init, tl, rle, rsym, nseq)]
-    for x, name in zip(args, ("st", "dnb", "dfs", "init", "tl", "rle", "rsym", "nseq")):
-        _kernels.check_cuda(x, torch.int32, f"state_chain3 {name}")
+    # The kernel reads int32 and int64 operands (and a bool rle) as they are;
+    # anything else gets an int32 copy.
+    ops = []
+    for x, name in zip((st, dnb, dfs, init, tl, rle, nseq),
+                       ("st", "dnb", "dfs", "init", "tl", "rle", "nseq")):
+        ok = (torch.int32, torch.int64) + ((torch.bool, torch.uint8) if name == "rle" else ())
+        x = (x if x.dtype in ok else x.to(torch.int32)).contiguous()
+        _kernels.check_cuda(x, None, f"state_chain3 {name}")
+        ops.append(x)
+    rsym = (rsym if rsym.dtype in (torch.int32, torch.int64) else rsym.to(torch.int32)).contiguous()
+    if rsym.data_ptr() % 16:
+        rsym = rsym.clone()
+    _kernels.check_cuda(rsym, None, "state_chain3 rsym")
+    esz = sum(x.element_size() << (4 * k) for k, x in enumerate(ops))
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "state_chain3 stats")
+        if stats.shape != (R, STATS):
+            raise ValueError(f"state_chain3: stats must be ({R}, {STATS})")
     pre = torch.empty((R, msb), dtype=torch.int32, device=rsym.device)
     nb = torch.empty_like(pre)
     fin = torch.empty((R,), dtype=torch.int32, device=rsym.device)
@@ -129,7 +161,8 @@ def state_chain3(st, dnb, dfs, init, tl, rle, rsym, nseq):
         return pre, fin, nb
     _kernels.launch(
         "chain", "tz_state_chain3",
-        *(x.data_ptr() for x in args), pre.data_ptr(), nb.data_ptr(), fin.data_ptr(),
-        R, dnb.shape[1], msb,
+        *(x.data_ptr() for x in ops), esz, rsym.data_ptr(), int(rsym.dtype == torch.int64),
+        pre.data_ptr(), nb.data_ptr(), fin.data_ptr(),
+        None if stats is None else stats.data_ptr(), R, dnb.shape[1], msb,
     )
     return pre, fin, nb
