@@ -48,11 +48,21 @@ Phases, in order; any failure exits non-zero:
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
    rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
    per 16 rows); K12 on unique keys spanning negative values with 0-3
-   payloads, and past one CTA's width (the tiled network) at 32768 and 65536
-   columns, timed at 16M elements beside torch.sort + torch.gather; K13 on
-   low-entropy windows at 2 x 1024, at the three level shapes (2048 x 8192)
-   and at 65536 (2 and 256 windows, timed); K11 on the reference test's
-   fields, its sparse case and fields running past the padded width.
+   payloads and with 35 (two launches), K13 on low-entropy windows at 2 x
+   1024 and at the three level shapes (2048 x 8192); both on their hard sets
+   (tests/torch_cases.py `SORT_HARD`: rows sorted, reversed, organ-pipe and
+   random, keys at and next to INT32_MIN and INT32_MAX, 1 and 3 rows, 0 and 3
+   payloads; `MATCH_HARD`: one hash a window, all-sentinel windows, two
+   alternating hashes, equal words everywhere, hashes at the ends of the key
+   range, depth 0, 5, 8 and 127, nwords 0, 1 and 16) at widths 1024, 8192,
+   16384, 32768 and 65536, and K12 on one row of 2^20 columns; then K12 with
+   1 and 3 operands at 2048 x 8192, 512 x 32768 and 256 x 65536 beside
+   torch.sort + torch.gather, and K13 at the level-1/3/5 shapes and at 256 x
+   65536, each timed by CUDA events, queued behind a spin kernel and on the
+   device, beside commit d0443a2's time, its bound (bytes; K13 also its
+   compares) and "network ops" (one bitonic network's int32 operations, the
+   bound used before); K11 on the reference test's fields, its sparse case
+   and fields running past the padded width.
 3. The first slice's path at full width: the 16 MiB bench batch
    (128 x 128 KB) through `compress_blocks_staged_many` at SLICE_CONFIG, the
    launch counts set to 0 just before and read just after; every block's
@@ -107,7 +117,8 @@ Phases, in order; any failure exits non-zero:
    kernel its time by CUDA events at every captured shape, its bound and its
    plain version's time (K12 also `torch.sort` + `torch.gather`, its
    library call; K13 beside the plain route's `find_matches`, K11 beside the
-   deposit tree, both in phase 4d), and its bound summed over its launches
+   deposit tree, both in phase 4d; K12 and K13 also their device time and
+   "network ops"), and its bound summed over its launches
    in one batch (`bound_ms_per_batch`); K4's, K6's, K7's and K8/K9's
    counters on the main paths' inputs (chunks or lanes that met their
    speculative walk, fix-up rounds; sequences a chunk walked and words not
@@ -145,11 +156,32 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K10 bound: int32 operations per (position, length) tried and per position.
 OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 8, 12
-# K12/K13 bound: int32 operations per compare-exchange of the bitonic network
-# (partner index, compare, direction, select); K13 also per (position,
-# predecessor) pair its data compares and per position.
-SORT_OPS_PER_CE = 4
+# K13 bound: int32 operations per (position, predecessor) pair its data
+# compares and per position. "Network ops" (K12's and K13's former bound):
+# int32 operations per compare-exchange of one bitonic network (partner
+# index, compare, direction, select).
 MATCH_OPS_PER_PAIR, MATCH_OPS_PER_POSITION = 6, 4
+SORT_OPS_PER_CE = 4
+# K12's and K13's times before their register network (commit d0443a2) at
+# the shapes that phase 2 times, by CUDA events over back-to-back calls on
+# NVIDIA H100 80GB HBM3 at 700.00 W (`tools/torch_sort_bench.py --tree` on
+# that commit's kernels; PERF.md section 6): printed beside this run's.
+SORT_MATCH_PARENT_MS = {
+    ("sort", "(2048, 8192) x 1 operands"): 1.2185,
+    ("sort", "(2048, 8192) x 3 operands"): 1.3539,
+    ("sort", "(512, 32768) x 1 operands"): 2.3711,
+    ("sort", "(512, 32768) x 3 operands"): 2.7739,
+    ("sort", "(256, 65536) x 1 operands"): 2.7119,
+    ("sort", "(256, 65536) x 3 operands"): 3.0073,
+    ("match", "level 1"): 0.9656,
+    ("match", "level 3"): 1.0239,
+    ("match", "level 5"): 1.0297,
+    ("match", "tiled"): 4.6189,
+}
+# K12's and K13's kernels, for their device time (torch.profiler).
+SORT_KERNELS = ("sort_rows_kernel", "merge_pass_kernel")
+MATCH_KERNELS = ("match_windows_kernel", "match_wide_kernel", "merge_pass_kernel",
+                 "unpack_kernel")
 B, N = 128, 131072
 REPS = 5
 # A level-19 batch takes ~1 s: its pipelined time is taken over fewer batches.
@@ -204,12 +236,12 @@ def _queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int, kernel: str):
+def _device_ms(fn, iters: int, kernel):
     """Mean device milliseconds a call of the kernels whose name contains
-    `kernel`, from a torch.profiler (CUPTI) trace of `iters` calls after one
-    warm-up call: the kernel's own time, without the host's launch cost that
-    back-to-back CUDA-event timing of a short kernel measures. None if the
-    trace holds no such kernel."""
+    `kernel` (or one of the names in a tuple), from a torch.profiler (CUPTI)
+    trace of `iters` calls after one warm-up call: the kernel's own time,
+    without the host's launch cost that back-to-back CUDA-event timing of a
+    short kernel measures. None if the trace holds no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,7 +253,8 @@ def _device_ms(fn, iters: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     us = [e.device_time_total for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+          if e.device_type == DeviceType.CUDA
+          and any(k in e.name for k in ((kernel,) if isinstance(kernel, str) else kernel))]
     return sum(us) / iters / 1e3 if us else None
 
 
@@ -231,6 +264,48 @@ def _fmt_ms(v) -> str:
 
 def _sha(b: bytes) -> str:
     return hashlib.sha256(b).hexdigest()
+
+
+def sort_library(*ops):
+    """K12's function in one PyTorch call: torch.sort, then torch.gather of
+    each payload (the yardstick `library_ms`; the port never calls it)."""
+    import torch
+
+    k, order = torch.sort(ops[0], dim=-1)
+    return (k, *(torch.gather(p, -1, order) for p in ops[1:]))
+
+
+def network_ms(R: int, W: int) -> float:
+    """Milliseconds for the int32 operations of one bitonic network over
+    (R, W) rows at the card's int32 rate: K12's and K13's former bound, kept
+    as "network ops" so that rows compare with earlier measurements."""
+    lw = W.bit_length() - 1
+    return R * (W // 2) * (lw * (lw + 1) // 2) * SORT_OPS_PER_CE / INT32_OPS_PER_S * 1e3
+
+
+def sort_bound_ms(ops) -> float:
+    """K12's bound: every operand read once and written once."""
+    return 2 * sum(o.numel() * o.element_size() for o in ops) / HBM_BYTES_PER_S * 1e3
+
+
+def match_bound_ms(key, words, depth: int, sentinel: int):
+    """K13's bound and what sets it: the bytes of the key and the words read
+    once and of ml and off written once, or the int32 operations of the depth
+    compares these inputs need (each live sorted position against its
+    predecessors of the same hash, up to depth), whichever is larger."""
+    import torch
+
+    R, W = key.shape
+    sh = torch.sort(key, dim=-1)[0] >> (W.bit_length() - 1)
+    idx = torch.arange(W, device=sh.device).expand(R, W)
+    new = torch.ones_like(sh, dtype=torch.bool)
+    new[:, 1:] = sh[:, 1:] != sh[:, :-1]
+    start = torch.cummax(torch.where(new, idx, 0), dim=1)[0]
+    pairs = int(torch.where(sh < sentinel, torch.clamp(idx - start, max=depth), 0).sum())
+    ops = pairs * MATCH_OPS_PER_PAIR + R * W * MATCH_OPS_PER_POSITION
+    nb = 3 * key.numel() * 4 + words.numel() * 4
+    b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
 
 
 def main() -> int:
@@ -746,53 +821,79 @@ def main() -> int:
     # K13: low-entropy windows (hashes collide as in text) at the reference
     # test's shape (2 x 1024) and at the three level shapes (2048 x 8192).
     def lowent_windows(R, W, nw, hl):
-        byt = rng.integers(0, 7, (R, W + 4 * nw + 4), dtype=np.uint8).astype(np.uint32)
-        w = byt[:, :-3] | (byt[:, 1:-2] << 8) | (byt[:, 2:-1] << 16) | (byt[:, 3:] << 24)
-        h = ((w.astype(np.uint64) * 2654435761) % (1 << 32) >> (32 - hl)).astype(np.int64)
-        lpos = np.arange(W)
-        key = (np.where(lpos < W - 3, h[:, :W], 1 << hl) << (W.bit_length() - 1)) | lpos
-        words = np.stack([w[:, 4 * k : 4 * k + W].view(np.int32) for k in range(nw)])
-        return cu(key.astype(np.int32)), cu(words)
+        return tuple(cu(a) for a in torch_cases.lowent_windows(rng, R, W, nw, hl))
 
     for R, W, depth, nw, hl in ((2, 1024, 2, 2, 12), (2, 1024, 8, 8, 12),
                                 (2048, 8192, 3, 4, 15), (2048, 8192, 8, 2, 17),
                                 (2048, 8192, 8, 16, 17)):
         hold("match", (*lowent_windows(R, W, nw, hl), depth, 1 << hl),
              f"({R}, {W}) depth {depth} words {nw}")
-    # K12 and K13 at widths past one CTA's shared memory (the tiled network
-    # of bitonic.cuh): K12 at 32768 and 65536 columns, K13 at 65536, small
-    # and at 16M elements (the bench batch's positions), with their times
-    # beside their plain versions (K12 also beside torch.sort + torch.gather)
-    # and the int32 operations of one network over the card's int32 rate.
-
-    def network_ms(R, W):
-        lw = W.bit_length() - 1
-        return R * (W // 2) * (lw * (lw + 1) // 2) * SORT_OPS_PER_CE / INT32_OPS_PER_S * 1e3
-
-    for R, W, P in ((2, 32768, 0), (1, 65536, 3), (512, 32768, 2), (256, 65536, 2)):
+    # K12's and K13's hard sets (tests/torch_cases.py SORT_HARD, MATCH_HARD)
+    # at the widths the kernels treat differently: 1024 (8 keys a thread),
+    # 8192 (the widest window one CTA sorts), 16384 (one merge-path pass),
+    # 32768 and 65536 (two and three); one K12 row of 2^20 columns (seven
+    # passes); seeded K12 rows past one CTA at 32768 and 65536 columns, and
+    # with 35 payloads (two launches of at most 32).
+    for W in (1024, 8192, 16384, 32768, 65536):
+        for c, (kinds, P, _) in enumerate(torch_cases.SORT_HARD):
+            hold("sort", tuple(cu(x) for x in torch_cases.sort_hard_ops(W, kinds, P, c)),
+                 f"hard {'/'.join(kinds)} x {P + 1} operands ({len(kinds)}, {W})")
+        for c, (kinds, depth, nw, _) in enumerate(torch_cases.MATCH_HARD):
+            mh = torch_cases.match_hard_inputs(W, kinds, depth, nw, c)
+            hold("match", (cu(mh["key"]), cu(mh["words"]), depth, mh["sentinel"]),
+                 f"hard {'/'.join(kinds)} depth {depth} words {nw} ({len(kinds)}, {W})")
+    big = tuple(cu(x) for x in torch_cases.sort_hard_ops(1 << 20, ("extremes_random",), 3, 9))
+    hold("sort", big, "hard one row of 2^20 x 4 operands")
+    print(f"time [{card}]: K12 one row of 2^20 x 4 operands "
+          f"{_time_ms(lambda: sort.sort_rows(*big), 5):.4f} ms, library "
+          f"{_time_ms(lambda: sort_library(*big), 5):.4f} ms, bound "
+          f"{sort_bound_ms(big):.4f} ms (bytes)")
+    del big
+    print(f"phase 2: K12 and K13 == their plain versions on the hard sets at widths 1024, "
+          f"8192, 16384, 32768 and 65536 and on one K12 row of 2^20")
+    for R, W, P in ((2, 32768, 0), (1, 65536, 3), (3, 1024, 35)):
+        key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1) * 3 - W
+        hold("sort", tuple(cu(x.astype(np.int32)) for x in
+                           [key] + [rng.integers(-2**31, 2**31, (R, W)) for _ in range(P)]),
+             f"wide ({R}, {W}) with {P} payloads")
+    # Times: K12 with 1 and 3 operands at 2048 x 8192 (one CTA a row) and at
+    # 512 x 32768 and 256 x 65536 (tiles and merge passes), beside torch.sort
+    # + torch.gather; K13 at the three level shapes and at 256 x 65536 (its
+    # tiled path). Each by CUDA events over back-to-back calls, queued behind
+    # a spin kernel, and on the device (torch.profiler), beside d0443a2's
+    # time, the bound (bytes, or K13's compares) and one network's int32
+    # operations ("network ops", their former bound).
+    for R, W, P in ((2048, 8192, 0), (2048, 8192, 2), (512, 32768, 0), (512, 32768, 2),
+                    (256, 65536, 0), (256, 65536, 2)):
         key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1) * 3 - W
         wops = tuple(cu(x.astype(np.int32)) for x in
                      [key] + [rng.integers(-2**31, 2**31, (R, W)) for _ in range(P)])
-        hold("sort", wops, f"wide ({R}, {W}) with {P} payloads")
-        if R * W >= 1 << 24:
-            lib_ms = _time_ms(lambda: (lambda k, o: (k, *(torch.gather(p_, -1, o)
-                                                           for p_ in wops[1:])))(
-                *torch.sort(wops[0], dim=-1)), 5)
-            print(f"time [{card}]: K12 wide ({R}, {W}) x {P + 1} operands "
-                  f"{_time_ms(lambda: sort.sort_rows(*wops), 5):.4f} ms, plain "
-                  f"{_time_ms(lambda: sort.sort_rows_plain(*wops), 3):.4f} ms, library "
-                  f"{lib_ms:.4f} ms, bound {network_ms(R, W):.4f} ms (operations)")
-    del wops
-    for R, W, depth, nw, hl in ((2, 65536, 8, 4, 14), (256, 65536, 8, 2, 14)):
-        key_w, words_w = lowent_windows(R, W, nw, hl)
-        margs_w = (key_w, words_w, depth, 1 << hl)
-        hold("match", margs_w, f"wide ({R}, {W}) depth {depth} words {nw}")
-        if R * W >= 1 << 24:
-            print(f"time [{card}]: K13 wide ({R}, {W}) depth {depth} words {nw} "
-                  f"{_time_ms(lambda: match.match_windows(*margs_w), 5):.4f} ms, plain "
-                  f"{_time_ms(lambda: match.match_windows_plain(*margs_w), 3):.4f} ms, "
-                  f"network bound {network_ms(R, W):.4f} ms (operations)")
-    del key_w, words_w, margs_w
+        hold("sort", wops, f"({R}, {W}) with {P} payloads")
+        run_s = lambda: sort.sort_rows(*wops)  # noqa: E731
+        label = f"({R}, {W}) x {P + 1} operands"
+        print(f"time [{card}]: K12 {label} {_time_ms(run_s, 20):.4f} ms, queued "
+              f"{_queued_ms(run_s, 20):.4f} ms, on the device "
+              f"{_fmt_ms(_device_ms(run_s, 10, SORT_KERNELS))}; d0443a2 "
+              f"{_fmt_ms(SORT_MATCH_PARENT_MS.get(('sort', label)))}; library "
+              f"{_time_ms(lambda: sort_library(*wops), 20):.4f} ms; bound "
+              f"{sort_bound_ms(wops):.4f} ms (bytes), network ops {network_ms(R, W):.4f} ms")
+    del wops, run_s
+    for R, W, depth, nw, hl, label in ((2048, 8192, 3, 4, 15, "level 1"),
+                                       (2048, 8192, 8, 2, 17, "level 3"),
+                                       (2048, 8192, 8, 16, 17, "level 5"),
+                                       (256, 65536, 8, 2, 14, "tiled")):
+        margs_w = (*lowent_windows(R, W, nw, hl), depth, 1 << hl)
+        hold("match", margs_w, f"{label} ({R}, {W}) depth {depth} words {nw}")
+        run_m = lambda: match.match_windows(*margs_w)  # noqa: E731
+        b_ms, b_by = match_bound_ms(*margs_w)
+        plain_w = (f", plain {_time_ms(lambda: match.match_windows_plain(*margs_w), 3):.4f} ms"
+                   if label == "tiled" else "")
+        print(f"time [{card}]: K13 {label} ({R}, {W}) depth {depth} words {nw} "
+              f"{_time_ms(run_m, 20):.4f} ms, queued {_queued_ms(run_m, 20):.4f} ms, on the "
+              f"device {_fmt_ms(_device_ms(run_m, 10, MATCH_KERNELS))}; d0443a2 "
+              f"{_fmt_ms(SORT_MATCH_PARENT_MS.get(('match', label)))}{plain_w}; bound "
+              f"{b_ms:.4f} ms ({b_by}), network ops {network_ms(R, W):.4f} ms")
+    del margs_w, run_m
     # K11: as tests/test_pallas_deposit.py builds its inputs, its sparse
     # case, and 32-bit fields running past the padded width.
     dep_cases = []
@@ -1231,25 +1332,10 @@ def main() -> int:
             nb = nbytes(packed) + nbytes(kw["lit_bits"]) + nbytes(kw["cost_bank"]) + nbytes(out)
             b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
             return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
-        if name in ("sort", "match"):
-            R, W = args[0].shape
-            lw = W.bit_length() - 1
-            ops = R * (W // 2) * (lw * (lw + 1) // 2) * SORT_OPS_PER_CE
-            if name == "sort":
-                nb = 2 * sum(nbytes(a) for a in args)
-            else:  # key and words in, ml and off out; the compares this data needs
-                key_a, words_a, depth_a, sent_a = args
-                sh = torch.sort(key_a, dim=-1)[0] >> lw
-                idx = torch.arange(W, device=sh.device).expand(R, W)
-                new = torch.ones_like(sh, dtype=torch.bool)
-                new[:, 1:] = sh[:, 1:] != sh[:, :-1]
-                start = torch.cummax(torch.where(new, idx, 0), dim=1)[0]
-                pairs = int(torch.where(sh < sent_a, torch.clamp(idx - start, max=depth_a),
-                                        0).sum())
-                ops += pairs * MATCH_OPS_PER_PAIR + R * W * MATCH_OPS_PER_POSITION
-                nb = 3 * nbytes(key_a) + nbytes(words_a)
-            b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-            return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+        if name == "sort":
+            return sort_bound_ms(args), "bytes"
+        if name == "match":
+            return match_bound_ms(*args)
         if name == "concat":
             x, off, cnt, out_len = args
             c = cnt.to(torch.int64)
@@ -1334,10 +1420,6 @@ def main() -> int:
                             "which the main path packs with the deposit tree"},
     }
 
-    def sort_library(*ops):
-        k, order = torch.sort(ops[0], dim=-1)
-        return (k, *(torch.gather(p, -1, order) for p in ops[1:]))
-
     plain_iters = {"rep": 1, "decode_seq": 1, "exec": 1, "opt": 1, "match": 1}
     rows_out = []
     for name, (kern, plain, source, replaces) in K.items():
@@ -1413,6 +1495,8 @@ def main() -> int:
                 }
                 if name == "sort":
                     row["library_ms"] = _time_ms(lambda: sort_library(*args), 3)
+                if name in ("sort", "match"):
+                    row["network_ops_ms"] = network_ms(*args[0].shape)
         row["ms_per_batch"] = per_batch
         row["bound_ms_per_batch"] = bound_batch
         if name in KERNEL_SYMBOL:

@@ -5,8 +5,9 @@ of decode_accel frames on the card against the input, and the fused match
 route (K13) against the CPU's, also with two_band and with 64 KB windows; K7
 also on its hard inputs (tests/torch_cases.py seq_hard_inputs, and with
 scrambled records) with its final rep triple, K12 also past one CTA's
-width, K3 and K5 also on their hard inputs (greedy_hard_packed,
-chain_hard_inputs, chain_garbage_inputs). Skips without one: a CUDA kernel
+width, K12 and K13 also on their hard sets (SORT_HARD, MATCH_HARD) at
+widths 1024, 8192, 16384 and 65536, K3 and K5 also on their hard inputs
+(greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs). Skips without one: a CUDA kernel
 has no CPU mode. Integer outputs: exact equality; the K5 state chains on
 their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
@@ -106,6 +107,16 @@ def _check_fused_route_kernels(dev):
                                    for _ in range(P)]
         for a, b in zip(sort.sort_rows(*ops), sort.sort_rows_plain(*ops)):
             assert torch.equal(a, b), W
+    for W in (1024, 8192, 16384, 65536):  # K12's and K13's hard sets, one CTA and tiled
+        for c, (kinds, P, _) in enumerate(torch_cases.SORT_HARD):
+            ops = [_t(x).to(dev) for x in torch_cases.sort_hard_ops(W, kinds, P, c)]
+            for a, b in zip(sort.sort_rows(*ops), sort.sort_rows_plain(*ops)):
+                assert torch.equal(a, b), (kinds, P, W)
+        for c, (kinds, depth, nw, _) in enumerate(torch_cases.MATCH_HARD):
+            m = torch_cases.match_hard_inputs(W, kinds, depth, nw, c)
+            args = (_t(m["key"]).to(dev), _t(m["words"]).to(dev), depth, m["sentinel"])
+            for a, b in zip(match.match_windows(*args), match.match_windows_plain(*args)):
+                assert torch.equal(a, b), (kinds, depth, nw, W)
     for name in ("match_windows_d2_w2", "match_windows_d8_w8"):
         i = torch_cases.CASES[name].inputs()
         args = (_t(i["key"]).to(dev), [_t(w).to(dev) for w in i["words"]], i["depth"],

@@ -1337,14 +1337,14 @@ def _dec_frames_inputs(kind):
     once per kind; callers do not modify the result."""
     @functools.lru_cache(maxsize=None)
     def make():
-        import zstandard
-
         from tpu_zstd_torch.api import config, manager
 
         n = DEC_N if kind == "accel" else DEC_N // 4  # serial decodes cost a step a sequence
         base = make_corpus(4 * n)
         payloads = [base[k * n : (k + 1) * n] for k in range(3)] + [_mix(33, n)]
-        if kind == "zstd":
+        if kind == "zstd":  # only libzstd's frames need zstandard (the card's machine has none)
+            import zstandard
+
             frames = [zstandard.ZstdCompressor(level=lv).compress(p)
                       for p, lv in zip(payloads, (1, 3, 9, 19))]
         else:
@@ -2409,6 +2409,154 @@ def _match_ref(i):
 for _d, _nw in ((2, 2), (8, 8)):
     case(f"match_windows_d{_d}_w{_nw}", "kernels", _match_inputs(_d, _nw), _match_port,
          _match_ref)
+
+def lowent_windows(rng, R: int, W: int, nw: int, hl: int):
+    """K13's operands on low-entropy windows (bytes 0-6, so hashes collide as
+    in text): key (R, W) = hash << log2(W) | pos with the last 3 positions
+    dead (hash 1 << hl), and the nw suffix words (nw, R, W), int32."""
+    byt = rng.integers(0, 7, (R, W + 4 * nw + 4), dtype=np.uint8).astype(np.uint32)
+    w = byt[:, :-3] | (byt[:, 1:-2] << 8) | (byt[:, 2:-1] << 16) | (byt[:, 3:] << 24)
+    h = ((w.astype(np.uint64) * 2654435761) % (1 << 32) >> (32 - hl)).astype(np.int64)
+    lpos = np.arange(W)
+    key = (np.where(lpos < W - 3, h[:, :W], 1 << hl) << (W.bit_length() - 1)) | lpos
+    words = np.stack([w[:, 4 * k: 4 * k + W].view(np.int32) for k in range(nw)])
+    return key.astype(np.int32), words
+
+
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def sort_hard_row(kind: str, W: int, rng) -> np.ndarray:
+    """One row of W unique int32 keys: `values` is "extremes" (W/2 keys at and
+    next to INT32_MIN, W/2 at and next to INT32_MAX) or "spread" (3k - W);
+    `order` is sorted, reversed, organ (the even ranks ascending, then the odd
+    ranks descending) or random. kind = "<values>_<order>"."""
+    values, order = kind.split("_")
+    h = np.arange(W // 2, dtype=np.int64)
+    v = (np.concatenate([INT32_MIN + h, INT32_MAX - h[::-1]]) if values == "extremes"
+         else np.arange(W, dtype=np.int64) * 3 - W)
+    v = np.sort(v)
+    if order == "reversed":
+        v = v[::-1]
+    elif order == "organ":
+        v = np.concatenate([v[0::2], v[1::2][::-1]])
+    elif order == "random":
+        v = rng.permutation(v)
+    return v.astype(np.int32)
+
+
+# K12's hard calls: (rows' kinds, payloads, width of the golden case). Rows
+# already sorted, reversed and organ-pipe; keys at and next to INT32_MIN and
+# INT32_MAX; one row and three rows; 0 and 3 payloads.
+SORT_HARD = (
+    (("extremes_sorted",), 0, 1024),
+    (("spread_sorted", "spread_reversed", "spread_organ"), 3, 2048),
+    (("extremes_organ", "extremes_reversed", "extremes_random"), 3, 1024),
+    (("extremes_reversed",), 0, 2048),
+)
+
+
+def sort_hard_ops(W: int, kinds, P: int, seed: int = 0) -> list[np.ndarray]:
+    """The key rows of `kinds` at width W and P payloads of full-range int32."""
+    rng = np.random.default_rng(seed)
+    key = np.stack([sort_hard_row(k, W, rng) for k in kinds])
+    return [key] + [rng.integers(INT32_MIN, INT32_MAX, key.shape, dtype=np.int64,
+                                 endpoint=True).astype(np.int32) for _ in range(P)]
+
+
+def _sort_hard_inputs():
+    return {"calls": [sort_hard_ops(W, kinds, P, k) for k, (kinds, P, W) in enumerate(SORT_HARD)]}
+
+
+def _sort_hard_port(i):
+    return {f"c{c}_{k}": v for c, ops in enumerate(i["calls"])
+            for k, v in _sort_port({"ops": ops}).items()}
+
+
+def _sort_hard_ref(i):
+    return {f"c{c}_{k}": v for c, ops in enumerate(i["calls"])
+            for k, v in _sort_ref({"ops": ops}).items()}
+
+
+case("sort_rows_hard", "kernels", _sort_hard_inputs, _sort_hard_port, _sort_hard_ref)
+
+
+def match_hard_window(kind: str, W: int, nwords: int, rng):
+    """One window's key row and its nwords suffix-word rows, and the
+    sentinel, for hard kind:
+    - one_hash: every live position has one hash, so each compare runs to
+      the full depth (the words are low-entropy, so most differ);
+    - sentinel: every position dead;
+    - alternating: two hashes, alternating position by position;
+    - equal_words: one hash and every word equal, so each match spans all
+      words;
+    - extremes: hashes at the ends of the int32 key range (keys at and next
+      to INT32_MIN; the sentinel at the top of the range);
+    - random: hashes from a small set (collisions as in text).
+    The last 3 positions are dead in every kind."""
+    plog = W.bit_length() - 1
+    sentinel = (1 << (31 - plog)) - 1
+    pos = np.arange(W, dtype=np.int64)
+    if kind == "one_hash":
+        h = np.full(W, 5)
+    elif kind == "sentinel":
+        h = np.full(W, sentinel)
+    elif kind == "alternating":
+        h = np.where(pos & 1, 9, 1 << 12)
+    elif kind == "equal_words":
+        h = np.full(W, sentinel - 1)
+    elif kind == "extremes":
+        h = rng.choice(np.array([-(1 << (31 - plog)), 1 - (1 << (31 - plog)), -1, 0,
+                                 sentinel - 1]), W)
+        h[0] = -(1 << (31 - plog))
+    else:
+        h = rng.integers(0, 6, W)
+    h = np.where(pos < W - 3, h, sentinel)
+    key = ((h << plog) | pos).astype(np.int64)
+    key = np.where(key >= 1 << 31, key - (1 << 32), key).astype(np.int32)
+    if kind == "equal_words" or nwords == 0:
+        words = np.full((nwords, W), 0x3A3A3A3A, np.int32)
+    else:
+        byt = rng.integers(0, 3, W + 4 * nwords + 4, dtype=np.uint8).astype(np.uint32)
+        w = byt[:-3] | (byt[1:-2] << 8) | (byt[2:-1] << 16) | (byt[3:] << 24)
+        words = np.stack([w[4 * k: 4 * k + W].view(np.int32) for k in range(nwords)]
+                         ).reshape(nwords, W)
+    return key, words, sentinel
+
+
+# K13's hard calls: (windows' kinds, depth, nwords, width of the golden
+# case). Each call's windows are its rows; depth 0 and 127, nwords 0, 1 and
+# 16.
+MATCH_HARD = (
+    (("one_hash", "alternating", "extremes"), 127, 1, 1024),
+    (("equal_words", "sentinel", "random"), 8, 16, 1024),
+    (("one_hash",), 0, 16, 2048),
+    (("alternating", "random"), 5, 0, 2048),
+)
+
+
+def match_hard_inputs(W: int, kinds, depth: int, nwords: int, seed: int = 0) -> dict:
+    """K13's operands for one hard call at window width W: the key (R, W),
+    the words (nwords, R, W), depth and the sentinel."""
+    rng = np.random.default_rng(seed)
+    rows = [match_hard_window(k, W, nwords, rng) for k in kinds]
+    return {"key": np.stack([r[0] for r in rows]),
+            "words": np.stack([r[1] for r in rows], axis=1).reshape(nwords, len(rows), W),
+            "depth": depth, "sentinel": rows[0][2]}
+
+
+def _match_hard_inputs():
+    return {"calls": [match_hard_inputs(W, kinds, d, nw, k)
+                      for k, (kinds, d, nw, W) in enumerate(MATCH_HARD)]}
+
+
+def _match_hard_call(i, fn):
+    return {f"c{c}_{k}": v for c, m in enumerate(i["calls"])
+            for k, v in fn({**m, "words": list(m["words"])}).items()}
+
+
+case("match_windows_hard", "kernels", _match_hard_inputs,
+     lambda i: _match_hard_call(i, _match_port), lambda i: _match_hard_call(i, _match_ref))
 
 
 def _deposit_pallas_inputs(kind):

@@ -5,101 +5,146 @@
 // (`_sort_rows_impl` / `_make_kernel`), a bitonic network over a row held in
 // VMEM that moves the key and every payload through each compare-exchange.
 //
-// Design: one CTA a row. The key and a slot index (the element's original
-// column) live in dynamic shared memory, 8 bytes a column: 64 KB at W 8192,
-// 128 KB at W 16384, so the launch opts in above 48 KB. The network of
-// bitonic.cuh sorts (key, slot); the payloads never enter shared memory:
-// after the network each payload row is gathered by slot from device memory
-// (a permutation inside one row, which L2 holds), so any operand count fits.
-// Rows wider than 16384 (any power of two up to 2^30) take the tiled network
-// of bitonic.cuh (tiles of 16384 columns, the stages across tiles as passes
-// over device memory) on the output key row and a (key, slot) scratch row,
-// then the same gather of each payload by slot in a last kernel.
-//
-// Bound: on paper bytes (each operand read and written once), but each row
-// runs log2(W) (log2(W) + 1) / 2 network stages of W / 2 compare-exchanges
-// in shared memory, one barrier a stage, so the shared-memory traffic and
-// the barriers set the time of this simple version.
+// Bound: bytes, each operand read once and written once (0.12 ms for 3
+// operands at 2048 x 8192 on the H100). Run as 91 barriered passes over
+// shared memory at W 8192, the bitonic network takes ten times that
+// (PERF.md). The network's work does not depend on the data, so the design
+// keeps it in registers as far as it can (bitonic.cuh); the network's
+// instructions, not the bytes, still set the time (PERF.md).
+// - Rows of up to 8192 columns: one CTA a row. Each of 512 threads holds 16
+//   consecutive keys and their slots (original columns) in registers, loaded
+//   with 16-byte loads, and runs the register network of bitonic.cuh; only
+//   the 10 stages across warps use shared memory (key and slot, 8 bytes a
+//   column: 64 KB at W 8192, two CTAs an SM). The sorted keys are stored
+//   from registers with 16-byte stores. The payloads never enter the
+//   network: each payload row is staged in shared memory, two at a time
+//   (the exchange buffers), with 16-byte loads, then every thread reads its
+//   16 elements there by slot and stores them with 16-byte stores.
+// - Wider rows (any power of two up to 2^30): the same kernel sorts tiles of
+//   8192 columns ascending into scratch (key and slot), then merge-path
+//   passes of bitonic.cuh merge pairs of runs, log2(W / 8192) passes, the
+//   last of which gathers each payload by slot from device memory (a
+//   permutation inside one row, which L2 holds) and writes the keys.
+// - The payload pointers reach the kernel by value (up to MAX_PAY a launch;
+//   the wrapper launches again for more), so a call copies nothing to the
+//   device before its launch: a pointer array in device memory cost a
+//   blocking host-to-device copy a call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bitonic.cuh"
 
+namespace {
+
+constexpr int SORT_LOG_TILE = 13;  // widest row one CTA sorts: 8192 columns
+
+// Elements a thread: E = 2^sort_log_e(log_w), T = W / E threads.
+__host__ __device__ constexpr int sort_log_e(int log_w) { return log_w <= 11 ? 3 : 4; }
+// At W 8192 two CTAs an SM (64 KB of shared memory each).
+__host__ __device__ constexpr int sort_min_blocks(int log_w) { return log_w == 13 ? 2 : 1; }
+
+// One CTA a row (or a tile of a wider row): sort the key with its slot;
+// then either store the key and gather the npay payloads by slot (slot_out
+// null), or store the key and the slot as the row column (tile mode: the
+// tile is part of a row of 2^log_w_row columns).
 template <int LOG_W>
-__global__ void __launch_bounds__((1 << LOG_W) / 2 < 1024 ? (1 << LOG_W) / 2 : 1024)
+__global__ void __launch_bounds__(1 << (LOG_W - sort_log_e(LOG_W)), sort_min_blocks(LOG_W))
 sort_rows_kernel(const int32_t* __restrict__ key, int32_t* __restrict__ key_out,
-                 const int64_t* __restrict__ pay_in, const int64_t* __restrict__ pay_out,
-                 int npay) {
+                 const Payloads pay, int32_t* __restrict__ slot_out, int log_w_row) {
+  constexpr int LOG_E = sort_log_e(LOG_W);
+  constexpr int E = 1 << LOG_E;
   constexpr int W = 1 << LOG_W;
-  constexpr int T = W / 2 < 1024 ? W / 2 : 1024;
-  extern __shared__ int32_t smem[];
-  int32_t* s_key = smem;
-  int32_t* s_slot = smem + W;
-  const int64_t base = (int64_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += T) {
-    s_key[i] = key[base + i];
-    s_slot[i] = i;
+  constexpr int T = W / E;
+  extern __shared__ int4 smem4[];
+  int32_t* xk = reinterpret_cast<int32_t*>(smem4);
+  int32_t* xs = xk + W;
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x << LOG_W;
+  int32_t k[E], s[E];
+  load_row<E>(key + base, t, k);
+#pragma unroll
+  for (int e = 0; e < E; ++e) s[e] = t * E + e;
+  network_sort<LOG_E, LOG_W - LOG_E, true>(k, s, xk, xs);
+  store_row<E>(key_out + base, t, k);
+  if (slot_out != nullptr) {
+    store_row<E>(slot_out + base, t, s, (int32_t)(base & ((1LL << log_w_row) - 1)));
+    return;
   }
-  bitonic_sort_smem<LOG_W, T, true>(s_key, s_slot);
-  for (int i = threadIdx.x; i < W; i += T) key_out[base + i] = s_key[i];
-  for (int p = 0; p < npay; ++p) {
-    const int32_t* src = reinterpret_cast<const int32_t*>(pay_in[p]) + base;
-    int32_t* dst = reinterpret_cast<int32_t*>(pay_out[p]) + base;
-    for (int i = threadIdx.x; i < W; i += T) dst[i] = src[s_slot[i]];
-  }
-}
-
-template <int LOG_W>
-static int launch_sort(const void* key, void* key_out, const void* pay_in, const void* pay_out,
-                       int npay, int64_t R, cudaStream_t stream) {
-  constexpr int W = 1 << LOG_W;
-  constexpr int T = W / 2 < 1024 ? W / 2 : 1024;
-  const size_t smem = 2 * sizeof(int32_t) * (size_t)W;
-  cudaError_t err = cudaFuncSetAttribute(
-      sort_rows_kernel<LOG_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sort_rows_kernel<LOG_W><<<(unsigned)R, T, smem, stream>>>(
-      (const int32_t*)key, (int32_t*)key_out, (const int64_t*)pay_in, (const int64_t*)pay_out,
-      npay);
-  return (int)cudaGetLastError();
-}
-
-// Wide rows: payload p of element i is the payload at column slot[i] of its row.
-__global__ void __launch_bounds__(256)
-gather_payloads_kernel(const int32_t* __restrict__ slot, const int64_t* __restrict__ pay_in,
-                       const int64_t* __restrict__ pay_out, int npay, int64_t n, int log_w) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t src = ((i >> log_w) << log_w) + slot[i];
-    for (int p = 0; p < npay; ++p) {
-      const int32_t* in = reinterpret_cast<const int32_t*>(pay_in[p]);
-      reinterpret_cast<int32_t*>(pay_out[p])[i] = in[src];
+  for (int p = 0; p < pay.n; p += 2) {  // two payload rows a round, in xk and xs
+    const bool two = p + 1 < pay.n;
+    const int4* in0 = reinterpret_cast<const int4*>(pay.in[p]) + (base >> 2);
+    const int4* in1 = two ? reinterpret_cast<const int4*>(pay.in[p + 1]) + (base >> 2) : nullptr;
+    __syncthreads();  // the previous readers of xk and xs are done
+    for (int q = t; q < W / 4; q += T) {
+      reinterpret_cast<int4*>(xk)[q] = in0[q];
+      if (two) reinterpret_cast<int4*>(xs)[q] = in1[q];
+    }
+    __syncthreads();
+    int32_t v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = xk[s[e]];
+    store_row<E>(reinterpret_cast<int32_t*>(pay.out[p]) + base, t, v);
+    if (two) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = xs[s[e]];
+      store_row<E>(reinterpret_cast<int32_t*>(pay.out[p + 1]) + base, t, v);
     }
   }
 }
 
-// pay_in / pay_out: device arrays of npay payload pointers (int32 (R, W) each);
-// slot: int32 (R, W) scratch, used for rows wider than 16384 only.
+template <int LOG_W>
+int launch_sort(const int32_t* key, int32_t* key_out, const Payloads& pay, int32_t* slot_out,
+                int log_w_row, int64_t grid, cudaStream_t stream) {
+  const int smem = 2 * (int)sizeof(int32_t) << LOG_W;
+  cudaError_t err = cudaFuncSetAttribute(sort_rows_kernel<LOG_W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  sort_rows_kernel<LOG_W><<<(unsigned)grid, 1 << (LOG_W - sort_log_e(LOG_W)), smem, stream>>>(
+      key, key_out, pay, slot_out, log_w_row);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// key, key_out: int32 (R, 2^log_w), 16-byte aligned; pay_in / pay_out: host
+// arrays of npay <= MAX_PAY device pointers (int32 (R, 2^log_w) payloads,
+// 16-byte aligned); scratch: int32 (3, R, 2^log_w), used for rows wider than
+// 8192 only.
 extern "C" int tz_sort_rows(const void* key, void* key_out, const void* pay_in,
-                            const void* pay_out, void* slot, int npay, int64_t R, int log_w,
+                            const void* pay_out, void* scratch, int npay, int64_t R, int log_w,
                             cudaStream_t stream) {
-  if (log_w > 14) {
-    if (slot == nullptr) return (int)cudaErrorInvalidValue;
-    const int err = bitonic_sort_wide<14, true>((const int32_t*)key, (int32_t*)key_out,
-                                                (int32_t*)slot, R, log_w, stream);
-    if (err != 0 || npay == 0) return err;
-    const int64_t n = R << log_w;
-    gather_payloads_kernel<<<(unsigned)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16),
-                             256, 0, stream>>>((const int32_t*)slot, (const int64_t*)pay_in,
-                                               (const int64_t*)pay_out, npay, n, log_w);
-    return (int)cudaGetLastError();
+  if (npay < 0 || npay > MAX_PAY) return (int)cudaErrorInvalidValue;
+  const int32_t* k = (const int32_t*)key;
+  int32_t* ko = (int32_t*)key_out;
+  Payloads pay = {};
+  for (int p = 0; p < npay; ++p) {
+    pay.in[p] = ((const int64_t*)pay_in)[p];
+    pay.out[p] = ((const int64_t*)pay_out)[p];
   }
+  pay.n = npay;
   switch (log_w) {
-    case 10: return launch_sort<10>(key, key_out, pay_in, pay_out, npay, R, stream);
-    case 11: return launch_sort<11>(key, key_out, pay_in, pay_out, npay, R, stream);
-    case 12: return launch_sort<12>(key, key_out, pay_in, pay_out, npay, R, stream);
-    case 13: return launch_sort<13>(key, key_out, pay_in, pay_out, npay, R, stream);
-    case 14: return launch_sort<14>(key, key_out, pay_in, pay_out, npay, R, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 10: return launch_sort<10>(k, ko, pay, nullptr, 10, R, stream);
+    case 11: return launch_sort<11>(k, ko, pay, nullptr, 11, R, stream);
+    case 12: return launch_sort<12>(k, ko, pay, nullptr, 12, R, stream);
+    case 13: return launch_sort<13>(k, ko, pay, nullptr, 13, R, stream);
+    default: break;
   }
+  if (log_w <= SORT_LOG_TILE || log_w > 30 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // Buffers: x (scratch 0) and key_out for the keys, scratch 1 and 2 for the
+  // slots. The last merge pass reads pass (M - 1) % 2's buffer and writes
+  // key_out, so x takes that parity.
+  const int64_t n = R << log_w;
+  int32_t* x = (int32_t*)scratch;
+  const int passes = log_w - SORT_LOG_TILE;
+  int32_t* kb0 = passes & 1 ? x : ko;
+  int32_t* kb1 = passes & 1 ? ko : x;
+  int32_t* sb0 = npay ? x + n : nullptr;
+  const Payloads none = {};
+  int err = launch_sort<SORT_LOG_TILE>(k, kb0, none, sb0, log_w, n >> SORT_LOG_TILE, stream);
+  if (err != 0) return err;
+  if (npay == 0)
+    return merge_rows<false>(kb0, kb1, nullptr, nullptr, ko, pay, R, log_w, SORT_LOG_TILE,
+                             stream);
+  return merge_rows<true>(kb0, kb1, sb0, x + 2 * n, ko, pay, R, log_w, SORT_LOG_TILE, stream);
 }

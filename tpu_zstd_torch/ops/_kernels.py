@@ -50,7 +50,7 @@ SIGNATURES = {
     "tz_exec_sequences": (P,) * 13 + (I32,) * 6 + (P,),
     "tz_opt_steps": (P, P, P, P, I64, I32, I32, I32, P),
     "tz_sort_rows": (P, P, P, P, P, I32, I64, I32, P),
-    "tz_match_windows": (P, P, P, P, I64, I32, I32, I32, I32, P),
+    "tz_match_windows": (P, P, P, P, P, I64, I32, I32, I32, I32, P),
     "tz_deposit_bits": (P, P, P, P, I64, I32, I32, P),
 }
 
@@ -136,6 +136,19 @@ def launch(kernel: str, entry: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
     launches[kernel] += 1
+
+
+def pointers(ts) -> ctypes.Array | None:
+    """A host array of the tensors' data pointers, for a kernel that takes
+    them by value (None for no tensors)."""
+    return (ctypes.c_int64 * len(ts))(*(t.data_ptr() for t in ts)) if ts else None
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on a 16-byte boundary
+    (a view at an offset): kernels that load and store 16 bytes at a time
+    need that alignment."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda(t: torch.Tensor, dtype, name: str) -> None:

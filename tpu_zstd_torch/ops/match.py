@@ -18,11 +18,13 @@ import torch
 from . import _kernels
 from .sort import sort_rows_plain
 
-# The kernel keeps a window's keys in shared memory, 4 bytes a position:
-# 32768 positions (128 KB) are the most one CTA holds. Wider windows sort
-# their keys in tiles (csrc/bitonic.cuh) into a scratch row, and a second
-# kernel runs the compares.
-CTA_WIDTH = 32768
+# The widest window one CTA takes (its keys in registers, 32 a thread over
+# 256 threads; the keys and the first two suffix words in 96 KB of shared
+# memory).
+# Wider windows sort their keys in tiles of that width, merged by merge-path
+# passes (csrc/bitonic.cuh) into scratch rows, and a second kernel runs the
+# compares.
+CTA_WIDTH = 8192
 
 
 def _word_inc(x: torch.Tensor) -> torch.Tensor:
@@ -96,14 +98,19 @@ def match_windows(key: torch.Tensor, words, depth: int,
                  else torch.zeros((0, R, W), dtype=torch.int32, device=key.device))
     if words.dim() != 3 or tuple(words.shape[1:]) != (R, W):
         raise ValueError(f"match_windows: words {tuple(words.shape)} do not match key {(R, W)}")
-    key = key.to(torch.int32).contiguous()
-    words = words.to(torch.int32).contiguous()
+    key = _kernels.aligned(key.to(torch.int32).contiguous())
+    words = _kernels.aligned(words.to(torch.int32).contiguous())
     _kernels.check_cuda(key, torch.int32, "match_windows key")
     _kernels.check_cuda(words, torch.int32, "match_windows words")
-    packed = torch.empty((R, W), dtype=torch.int32, device=key.device)
+    ml = torch.empty((R, W), dtype=torch.int32, device=key.device)
+    off = torch.empty_like(ml)
     if R:
-        skey = torch.empty_like(key) if W > CTA_WIDTH else None
+        # Tiled windows: two key buffers for the merge passes and the first
+        # two suffix words in sorted order.
+        scratch = (torch.empty((4, R, W), dtype=torch.int32, device=key.device)
+                   if W > CTA_WIDTH else None)
         _kernels.launch("match", "tz_match_windows", key.data_ptr(), words.data_ptr(),
-                        packed.data_ptr(), None if skey is None else skey.data_ptr(), R, plog,
+                        ml.data_ptr(), off.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), R, plog,
                         words.shape[0], depth, sentinel)
-    return packed >> plog, packed & (W - 1)
+    return ml, off

@@ -16,10 +16,12 @@ import torch
 
 from . import _kernels
 
-# The kernel keeps a row's key and slot index in shared memory, 8 bytes a
-# column: 16384 columns (128 KB) are the most one CTA holds. Wider rows sort
-# in tiles of that width, with the stages across tiles in device memory.
-CTA_WIDTH = 16384
+# The widest row one CTA sorts (its key and slot in registers, 16 a thread
+# over 512 threads). Wider rows sort in tiles of that width, which merge-path
+# passes then merge (csrc/bitonic.cuh).
+CTA_WIDTH = 8192
+# Payloads a launch takes (csrc/bitonic.cuh MAX_PAY).
+MAX_PAY = 32
 
 
 def sortable(width: int) -> bool:
@@ -43,7 +45,8 @@ def sort_rows_plain(*ops: torch.Tensor) -> tuple[torch.Tensor, ...]:
 def sort_rows(*ops: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Sort each row of the int32 operands ascending by ops[0]; returns the
     reordered operands, int32, in the operands' shape. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one launch a call)."""
+    plain version; CUDA tensors launch the kernel (one launch a call of up to
+    MAX_PAY payloads, one more for each MAX_PAY beyond)."""
     shape = ops[0].shape
     W = shape[-1]
     _check_width(W)
@@ -51,22 +54,23 @@ def sort_rows(*ops: torch.Tensor) -> tuple[torch.Tensor, ...]:
         raise ValueError(f"sort_rows: operand shapes differ: {[tuple(o.shape) for o in ops]}")
     if ops[0].device.type == "cpu":
         return sort_rows_plain(*ops)
-    flat = [o.reshape(-1, W).to(torch.int32).contiguous() for o in ops]
+    flat = [_kernels.aligned(o.reshape(-1, W).to(torch.int32).contiguous()) for o in ops]
     for k, o in enumerate(flat):
         _kernels.check_cuda(o, torch.int32, f"sort_rows operand {k}")
     R = flat[0].shape[0]
     outs = [torch.empty_like(o) for o in flat]
     if R:
-        dev = flat[0].device
-        slot = torch.empty_like(flat[0]) if W > CTA_WIDTH else None
-        pay_in = torch.tensor([o.data_ptr() for o in flat[1:]] or [0], dtype=torch.int64,
-                              device=dev)
-        pay_out = torch.tensor([o.data_ptr() for o in outs[1:]] or [0], dtype=torch.int64,
-                               device=dev)
-        _kernels.launch("sort", "tz_sort_rows", flat[0].data_ptr(), outs[0].data_ptr(),
-                        pay_in.data_ptr(), pay_out.data_ptr(),
-                        None if slot is None else slot.data_ptr(), len(flat) - 1, R,
-                        W.bit_length() - 1)
+        # Tiled rows: one more key buffer and two slot buffers.
+        scratch = (torch.empty((3, R, W), dtype=torch.int32, device=flat[0].device)
+                   if W > CTA_WIDTH else None)
+        # The payload pointers go to the kernel by value, MAX_PAY a launch;
+        # more payloads take more launches, each sorting the key again.
+        for g in range(0, max(len(flat) - 1, 1), MAX_PAY):
+            pin, pout = flat[1 + g:1 + g + MAX_PAY], outs[1 + g:1 + g + MAX_PAY]
+            _kernels.launch("sort", "tz_sort_rows", flat[0].data_ptr(), outs[0].data_ptr(),
+                            _kernels.pointers(pin), _kernels.pointers(pout),
+                            None if scratch is None else scratch.data_ptr(), len(pin), R,
+                            W.bit_length() - 1)
     return tuple(o.reshape(shape) for o in outs)
 
 
