@@ -44,11 +44,18 @@ Phases, in order; any failure exits non-zero:
    msb, RLE rows, table logs 5 and 6, S = 1 and 64, a 63-state symbol whose
    walks never meet, alone too) and `chain_garbage_inputs` (tables outside
    the encoder's contract), with the passes a row (max and mean), rows that
-   took the transfer maps or the 64-bit walk, and times; K10 seeded
+   took the transfer maps or the 64-bit walk, and times; K10 on the calls
+   of tests/torch_cases.py `opt_card_calls`: its hard calls (`OPT_HARD`,
+   `OPT_HARD_WIDE`: rows that offer every length, none, all prices zero, a
+   cost-to-go past BIG, prices near 2^30, negative and full-range int32,
+   prices at 4095, a bank a row; S 130 and 16397, seg 1, 33, 300, 1000,
+   1024 and 4096, cap 127 at mm 32, mm = cap), the calls of fast-path kinds
+   alone (`OPT_FAST_WIDE`, each row of which must take the fast path), seeded
    segment rows at min_match 3 / cap 64 (16384 x 1024, one bank per 128
-   rows) and at min_match 4 / cap 16 with 16 segments a block (one bank
-   per 16 rows); K12 on unique keys spanning negative values with 0-3
-   payloads and with 35 (two launches), K13 on low-entropy windows at 2 x
+   rows) and at min_match 4 / cap 16 with 16 segments a block (one bank per
+   16 rows), and rows that offer every length at 16384 x 1024, timed beside
+   their bound, with the rows of each call walked on the fast path; K12 on unique keys spanning
+   negative values with 0-3 payloads and with 35 (two launches), K13 on low-entropy windows at 2 x
    1024 and at the three level shapes (2048 x 8192); both on their hard sets
    (tests/torch_cases.py `SORT_HARD`: rows sorted, reversed, organ-pipe and
    random, keys at and next to INT32_MIN and INT32_MAX, 1 and 3 rows, 0 and 3
@@ -154,8 +161,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 # int32 operations a second: 132 SMs x 64 INT32 lanes (Hopper white paper)
 # x the 1.98 GHz boost clock of the H100 SXM.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# K10 bound: int32 operations per (position, length) tried and per position.
-OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 8, 12
+# K10 bound: int32 operations the function needs per (position, length) the
+# data offers (a 3-input add and a min, the band chosen once a position) and
+# per position (four field extractions, lmax = min(cap, max(ml, ml2)), the
+# two-band limit min(ml, ml2), min(mc, mc2), the longer band's mc by a compare
+# and a select, the literal's add and its min).
+OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 2, 12
 # K13 bound: int32 operations per (position, predecessor) pair its data
 # compares and per position. "Network ops" (K12's and K13's former bound):
 # int32 operations per compare-exchange of one bitonic network (partner
@@ -286,6 +297,22 @@ def network_ms(R: int, W: int) -> float:
 def sort_bound_ms(ops) -> float:
     """K12's bound: every operand read once and written once."""
     return 2 * sum(o.numel() * o.element_size() for o in ops) / HBM_BYTES_PER_S * 1e3
+
+
+def opt_bound_ms(packed, mm: int, cap: int, lit_bits, bank):
+    """K10's bound and what sets it: the bytes of packed, the literal prices
+    and the banks read once and of the steps written once, or the int32
+    operations for the lengths this input offers (up to max(ml, ml2), at
+    most cap) and per position, whichever is larger."""
+    import torch
+
+    x = packed.to(torch.int64)
+    lmax = torch.clamp(torch.maximum(x & 127, (x >> 12) & 127), max=cap)
+    tried = int(torch.clamp(lmax - mm + 1, min=0).sum())
+    ops = tried * OPT_OPS_PER_LENGTH + packed.numel() * OPT_OPS_PER_POSITION
+    nb = 2 * packed.numel() * 4 + lit_bits.numel() * 4 + bank.numel() * 4
+    b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
 
 
 def match_bound_ms(key, words, depth: int, sentinel: int):
@@ -800,18 +827,27 @@ def main() -> int:
               f"{_time_ms(lambda: execmod.execute_sequences(*hargs), 10):.4f} ms, from "
               f"4-stream rows {_time_ms(lambda: execmod.execute_sequences(*hargs, **hsrc), 10):.4f}"
               f" ms")
-    # K10: seeded segment rows; one bank row and literal price per block of
-    # `per` rows (128 segments of a 128 KB block; 16 of a 16 KB block).
-    for mm, cap, per in ((3, 64, 128), (4, 16, 16)):
-        S = B * per
-        ml = np.where(rng.random((S, 1024)) < 0.5, rng.integers(mm, 128, (S, 1024)), 0)
-        ml2 = np.where(rng.random((S, 1024)) < 0.3, rng.integers(mm, 40, (S, 1024)), 0)
-        packed = (ml | rng.integers(0, 32, (S, 1024)) << 7 | ml2 << 12
-                  | rng.integers(0, 16, (S, 1024)) << 19)
-        lit_bits = np.repeat(rng.integers(8, 177, B), per)
-        bank = np.repeat(rng.integers(0, 400, (B, 128)), per, axis=0)
-        hold("opt", (cu(packed.astype(np.int32)), mm, cap), f"mm {mm} cap {cap} ({S}, 1024)",
-             {"lit_bits": cu(lit_bits.astype(np.int32)), "cost_bank": cu(bank.astype(np.int32))})
+    # K10 (tests/torch_cases.py opt_card_calls): the hard calls, the calls its
+    # fast path walks alone, seeded rows and rows that offer every length; the
+    # rows each call walked on the fast path; the every-length rows timed
+    # beside the bound.
+    paths = []
+    for label, c in torch_cases.opt_card_calls(B):
+        oargs = (cu(c["packed"]), c["mm"], c["cap"])
+        okw = {"lit_bits": cu(c["lit"]), "cost_bank": cu(c["bank"])}
+        hold("opt", oargs, label, okw)
+        st = torch.zeros(oargs[0].shape[0], dtype=torch.int32, device=dev)
+        opt.opt_steps(*oargs, **okw, stats=st)
+        nfast = int(st.sum())
+        paths.append(f"{label}: {nfast}/{st.numel()}")
+        if label.startswith("fast") and nfast != st.numel():
+            _fail(f"opt {label}: {st.numel() - nfast} rows left the fast path")
+    print(f"phase 2: K10 rows walked on the fast path: {'; '.join(paths)}")
+    b_ms, b_by = opt_bound_ms(*oargs, okw["lit_bits"], okw["cost_bank"])
+    print(f"time [{card}]: K10 rows that offer every length {tuple(oargs[0].shape)} mm 3 cap 64: "
+          f"{_time_ms(lambda: opt.opt_steps(*oargs, **okw), 10):.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    del oargs, okw, st
     # K12: unique keys spanning negative values, with 0-3 payloads.
     for R, W, P in ((2, 1024, 0), (2, 2048, 1), (1, 8192, 3)):
         key = rng.permuted(np.tile(np.arange(W, dtype=np.int32), (R, 1)), axis=1) * 3 - W
@@ -1324,14 +1360,7 @@ def main() -> int:
         larger of that and its int32 operations for this input's lengths
         over the card's int32 rate."""
         if name == "opt":
-            packed, mm, cap = args
-            x = packed.to(torch.int64)
-            lmax = torch.clamp(torch.maximum(x & 127, (x >> 12) & 127), max=cap)
-            tried = int(torch.clamp(lmax - mm + 1, min=0).sum())
-            ops = tried * OPT_OPS_PER_LENGTH + packed.numel() * OPT_OPS_PER_POSITION
-            nb = nbytes(packed) + nbytes(kw["lit_bits"]) + nbytes(kw["cost_bank"]) + nbytes(out)
-            b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-            return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+            return opt_bound_ms(*args, kw["lit_bits"], kw["cost_bank"])
         if name == "sort":
             return sort_bound_ms(args), "bytes"
         if name == "match":

@@ -7,9 +7,13 @@ also on its hard inputs (tests/torch_cases.py seq_hard_inputs, and with
 scrambled records) with its final rep triple, K12 also past one CTA's
 width, K12 and K13 also on their hard sets (SORT_HARD, MATCH_HARD) at
 widths 1024, 8192, 16384 and 65536, K3 and K5 also on their hard inputs
-(greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs). Skips without one: a CUDA kernel
-has no CPU mode. Integer outputs: exact equality; the K5 state chains on
-their live range, the decode kernels
+(greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs), K10 also on
+the calls of opt_card_calls (its hard calls, OPT_HARD and OPT_HARD_WIDE:
+every row kind at 16397 x 1024, seg 1, 33, 1000 and 4096, cap 127 at mm
+32, mm = cap; OPT_FAST_WIDE, every row of which must take the fast path;
+seeded rows; rows that offer every length). Skips
+without one: a CUDA kernel has no CPU mode. Integer outputs: exact
+equality; the K5 state chains on their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
 tests/test_torch_*.py files.)
 """
@@ -80,11 +84,17 @@ def test_cuda_kernels_match_plain():
     data = make_corpus(5 * 16384)
     assert pipeline.compress(data, cfg, True, device=dev) == pipeline.compress(
         data, cfg, True, device="cpu")
-    for name in ("opt_steps_mm3_cap64", "opt_steps_mm4_cap16"):
-        i = torch_cases.CASES[name].inputs()
+    opt_calls = [(name, torch_cases.CASES[name].inputs())
+                 for name in ("opt_steps_mm3_cap64", "opt_steps_mm4_cap16")]
+    opt_calls += torch_cases.opt_card_calls()
+    for name, i in opt_calls:
         args = (_t(i["packed"]).to(dev), i["mm"], i["cap"], _t(i["lit"]).to(dev),
                 _t(i["bank"]).to(dev))
-        assert torch.equal(opt.opt_steps(*args), opt.opt_steps_plain(*args)), name
+        st = torch.zeros(args[0].shape[0], dtype=torch.int32, device=dev)
+        assert torch.equal(opt.opt_steps(*args, stats=st), opt.opt_steps_plain(*args)), (
+            name, tuple(args[0].shape), i["mm"], i["cap"])
+        if name.startswith("fast"):
+            assert int(st.sum()) == st.numel(), name
     opt_cfg = torch_cases._opt_level_cfg(config, 19)
     items = [make_corpus(40000), make_corpus(70000)[::-1][:33000]]
     assert manager.compress_items(items, opt_cfg, device=dev) == manager.compress_items(

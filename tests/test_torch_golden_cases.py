@@ -13,7 +13,8 @@ and their sidecar, the host format copies, the plain versions of the decode
 kernels K6-K9, and `prepare_decompress_batch` on the port's accel and plain
 frames and on libzstd's) and the fourth (min_match 3, the near-offset band,
 the wide sort key, the search over the whole block, LDM, the plain version
-of the segment DP K10, the optimal parse with its overflow poison, and
+of the segment DP K10 (also on its hard set `opt_hard`), the optimal parse
+with its overflow poison, and
 level 7/12/19/22 item frames at 16 KB blocks) and the fifth (the plain
 versions of the row sort K12, the fused match finder K13 (both also on
 their hard sets) and the bit deposit K11, and `find_matches` with
@@ -48,7 +49,8 @@ TOPICS = {
                 "decode_huffman",
                 "decode_huffman_hard",
                 "execute_sequences", "execute_sequences_hard",
-                "opt_steps_mm3_cap64", "opt_steps_mm4_cap16", "sort_rows_1024", "sort_rows_2048",
+                "opt_steps_mm3_cap64", "opt_steps_mm4_cap16", "opt_hard", "sort_rows_1024",
+                "sort_rows_2048",
                 "sort_rows_8192", "sort_rows_hard", "match_windows_d2_w2", "match_windows_d8_w8",
                 "match_windows_hard",
                 "deposit_pallas_0", "deposit_pallas_1", "deposit_pallas_2",

@@ -2234,6 +2234,146 @@ def _opt_ref(i):
 case("opt_steps_mm3_cap64", "optimal", _opt_inputs(3, 64, 8, 2), _opt_port, _opt_ref)
 case("opt_steps_mm4_cap16", "optimal", _opt_inputs(4, 16, 16, 3), _opt_port, _opt_ref)
 
+
+def opt_hard_row(kind: str, rng, seg: int, mm: int) -> tuple[np.ndarray, int, np.ndarray]:
+    """One DP row of hard kind: its packed positions (seg,), literal price
+    and cost-bank row (128,), int32.
+    - every: every position offers every length in both bands (ml = ml2 = 127);
+    - none: no position offers a length (ml, ml2 < mm);
+    - zero: every price zero (bank, literal and offset codes 0): ties everywhere;
+    - big: no matches and a literal price of 2^20, so the cost-to-go passes
+      BIG = 2^28 after 256 positions and the BIG candidate wins;
+    - big_sparse: the same with a match at one position in 20 (one band,
+      capped at BIG, or both);
+    - random: encoder-like lengths and prices;
+    - near30, negative: random lengths with bank and literal prices drawn
+      from [0, 2^30) and [-2^30, 2^30): sums wrap past 2^31;
+    - edge: random lengths, every bank entry and the literal price 4095 (the
+      largest price of the kernel's fast path);
+    - full: every int32 bit pattern, for the positions, bank and literal."""
+    def draw(p_ml, p_ml2):
+        ml = np.where(rng.random(seg) < p_ml, rng.integers(mm, 128, seg), 0)
+        ml2 = np.where(rng.random(seg) < p_ml2, rng.integers(mm, 40, seg), 0)
+        return ml, ml2
+
+    ofc, ofc2 = rng.integers(0, 32, seg), rng.integers(0, 16, seg)
+    bank, lit = rng.integers(0, 400, 128), int(rng.integers(8, 177))
+    if kind == "every":
+        ml = ml2 = np.full(seg, 127)
+    elif kind == "none":
+        ml, ml2 = rng.integers(0, mm, seg), rng.integers(0, mm, seg)
+    elif kind == "zero":
+        (ml, ml2), ofc, ofc2 = draw(0.5, 0.3), 0, 0
+        bank, lit = np.zeros(128, np.int64), 0
+    elif kind == "big":
+        ml = ml2 = ofc = ofc2 = 0
+        lit = 1 << 20
+    elif kind == "big_sparse":
+        (ml, ml2), lit = draw(0.05, 0.05), 1 << 20
+    else:
+        ml, ml2 = draw(0.5, 0.3)
+    if kind == "near30":
+        bank, lit = rng.integers(0, 1 << 30, 128), int(rng.integers(0, 1 << 30))
+    elif kind == "negative":
+        bank = rng.integers(-(1 << 30), 1 << 30, 128)
+        lit = int(rng.integers(-(1 << 30), 1 << 30))
+    elif kind == "edge":
+        bank, lit = np.full(128, 4095), 4095
+    packed = (ml | ofc << 7 | ml2 << 12 | ofc2 << 19) + np.zeros(seg, np.int64)
+    if kind == "full":
+        packed = rng.integers(INT32_MIN, INT32_MAX, seg, endpoint=True)
+        bank = rng.integers(INT32_MIN, INT32_MAX, 128, endpoint=True)
+        lit = int(rng.integers(INT32_MIN, INT32_MAX, endpoint=True))
+    return packed.astype(np.int32), lit, bank.astype(np.int32)
+
+
+# K10's hard calls: (rows' kinds, cycled over S rows, S, seg, mm, cap). Each
+# row has its own bank and literal price, so banks differ between the rows of
+# one CTA; S 130 is not a multiple of 128; seg 1, 33, 300, 1000 and 1024;
+# cap 127 at mm 32 and mm = cap.
+OPT_HARD = (
+    (("every", "none", "zero", "big", "random"), 130, 1024, 3, 64),
+    (("near30", "negative", "full", "big_sparse"), 130, 1024, 3, 64),
+    (("every", "full", "big", "zero"), 5, 1, 3, 64),
+    (("every", "negative", "big_sparse", "random"), 5, 33, 3, 64),
+    (("random", "near30", "every", "big_sparse"), 5, 1000, 3, 64),
+    (("every", "full", "zero", "big_sparse", "none"), 7, 300, 32, 127),
+    (("every", "negative", "random", "big_sparse", "big"), 7, 300, 16, 16),
+)
+
+
+# Every kind of opt_hard_row, and the hard calls held on the card beside
+# OPT_HARD: (S, seg, mm, cap), each of S rows cycling over OPT_KINDS, at the
+# main path's width (S not a multiple of a CTA's rows), at seg 1, 33, 1000
+# and 4096, and at cap 127 / mm 32 and mm = cap.
+OPT_KINDS = ("every", "none", "zero", "big", "big_sparse", "random", "near30", "negative",
+             "full", "edge")
+OPT_HARD_WIDE = ((16384 + 13, 1024, 3, 64), (1000, 1, 3, 64), (1000, 33, 3, 64),
+                 (1000, 1000, 3, 64), (300, 4096, 3, 64), (2000, 1024, 32, 127),
+                 (2000, 1024, 16, 16))
+# The kinds whose prices all lie in [0, 2^12), and calls of them alone, which
+# the kernel walks on its fast path only (seg <= 1024): seg 1, 33, 300, 1000
+# and 1024, mm = cap and cap 127 at mm 32. The kinds cycle over each warp's
+# 8 rows, so every warp holds ties, rows with no match and the edge row.
+OPT_FAST_KINDS = ("every", "none", "zero", "random", "edge")
+OPT_FAST_WIDE = ((1000, 1, 3, 64), (1000, 33, 3, 64), (1000, 300, 3, 64), (1000, 1000, 3, 64),
+                 (16384 + 13, 1024, 3, 64), (2000, 1024, 16, 16), (2000, 1024, 32, 127))
+
+
+def opt_hard_call(kinds, S: int, seg: int, mm: int, cap: int, rng) -> dict:
+    """One K10 call of S rows cycling over `kinds` (opt_hard_row): packed
+    (S, seg), lit (S,), bank (S, 128), mm and cap."""
+    rows = [opt_hard_row(kinds[r % len(kinds)], rng, seg, mm) for r in range(S)]
+    return {"packed": np.stack([r[0] for r in rows]),
+            "lit": np.array([r[1] for r in rows], np.int32),
+            "bank": np.stack([r[2] for r in rows]), "mm": mm, "cap": cap}
+
+
+def opt_hard_inputs(seed: int = 41) -> list[dict]:
+    """K10's hard calls (OPT_HARD)."""
+    rng = np.random.default_rng(seed)
+    return [opt_hard_call(*c, rng) for c in OPT_HARD]
+
+
+def opt_seeded_call(mm: int, cap: int, B: int, per: int, rng) -> dict:
+    """B * per seeded segment rows of 1024 with one bank row and literal
+    price per block of `per` rows (128 segments of a 128 KB block; 16 of a
+    16 KB block)."""
+    S = B * per
+    ml = np.where(rng.random((S, 1024)) < 0.5, rng.integers(mm, 128, (S, 1024)), 0)
+    ml2 = np.where(rng.random((S, 1024)) < 0.3, rng.integers(mm, 40, (S, 1024)), 0)
+    packed = (ml | rng.integers(0, 32, (S, 1024)) << 7 | ml2 << 12
+              | rng.integers(0, 16, (S, 1024)) << 19)
+    return {"packed": packed.astype(np.int32), "mm": mm, "cap": cap,
+            "lit": np.repeat(rng.integers(8, 177, B), per).astype(np.int32),
+            "bank": np.repeat(rng.integers(0, 400, (B, 128)), per, axis=0).astype(np.int32)}
+
+
+def opt_card_calls(B: int = 128, seed: int = 7) -> list[tuple[str, dict]]:
+    """K10's calls held against its plain version on the card, labelled:
+    the hard calls (OPT_HARD, OPT_HARD_WIDE, and OPT_FAST_WIDE labelled
+    "fast ..."), seeded rows at mm 3 / cap 64 and mm 4 / cap 16 (B blocks of
+    128 and of 16 rows) and B * 128 rows that offer every length ("every
+    length")."""
+    rng = np.random.default_rng(seed)
+
+    def label(kind, c):
+        return f"{kind} {c['packed'].shape} mm {c['mm']} cap {c['cap']}"
+
+    calls = [(label("hard", c), c) for c in opt_hard_inputs()]
+    calls += [(label("hard wide", c), c)
+              for c in (opt_hard_call(OPT_KINDS, *w, rng) for w in OPT_HARD_WIDE)]
+    calls += [(label("fast", c), c)
+              for c in (opt_hard_call(OPT_FAST_KINDS, *w, rng) for w in OPT_FAST_WIDE)]
+    return calls + [("seeded mm 3 cap 64", opt_seeded_call(3, 64, B, 128, rng)),
+                    ("seeded mm 4 cap 16", opt_seeded_call(4, 16, B, 16, rng)),
+                    ("every length", opt_hard_call(("every",), B * 128, 1024, 3, 64, rng))]
+
+
+case("opt_hard", "optimal", lambda: {"calls": opt_hard_inputs()},
+     lambda i: {f"c{k}": _opt_port(c)["steps"] for k, c in enumerate(i["calls"])},
+     lambda i: {f"c{k}": _opt_ref(c)["steps"] for k, c in enumerate(i["calls"])})
+
 OPT_PARSE_N = 16384
 OPT_PARSE_KW = dict(hash_log=13, depth=6, cap=16, min_match=3, lazy=True, seg_log=10,
                     of_gate=(8, 12), mf_win_log=12, optimal=True, ldm=True)

@@ -48,7 +48,7 @@ SIGNATURES = {
     "tz_decode_huffman": (P,) * 8 + (I32,) * 5 + (P,),
     "tz_decode_sequences": (P,) * 14 + (I32,) * 8 + (P,),
     "tz_exec_sequences": (P,) * 13 + (I32,) * 6 + (P,),
-    "tz_opt_steps": (P, P, P, P, I64, I32, I32, I32, P),
+    "tz_opt_steps": (P, P, P, P, P, I64, I32, I32, I32, P),
     "tz_sort_rows": (P, P, P, P, P, I32, I64, I32, P),
     "tz_match_windows": (P, P, P, P, P, I64, I32, I32, I32, I32, P),
     "tz_deposit_bits": (P, P, P, P, I64, I32, I32, P),

@@ -84,20 +84,19 @@ def opt_steps_plain(packed: torch.Tensor, mm: int, cap: int,
     """The DP of `_opt_scan`, one backward step per segment position,
     vectorised over rows and over lengths: a (S, cap + 1) window holds
     cost[p + 1 .. p + 1 + cap], and the first strict minimum over lengths in
-    increasing order replaces the literal only when strictly cheaper."""
-    lit_bits, bank = _operands(packed, mm, cap, lit_bits, cost_bank)
+    increasing order replaces the literal only when strictly cheaper. Costs
+    are int32 and wrap, as `_opt_scan`'s do."""
+    lit, bank = _operands(packed, mm, cap, lit_bits, cost_bank)
     S, seg = packed.shape
     dev = packed.device
-    x = packed.to(torch.int64).T  # (seg, S)
-    bank = bank.to(torch.int64)
+    x = packed.to(torch.int32).T  # (seg, S)
     ml, ofc = x & 127, (x >> 7) & 31
     ml2, ofc2 = (x >> 12) & 127, (x >> 19) & 15
-    mc = bank.gather(1, ofc.T).T + ofc * SCALE
-    mc2 = bank.gather(1, ofc2.T).T + ofc2 * SCALE
+    mc = bank.gather(1, ofc.T.long()).T + ofc * SCALE
+    mc2 = bank.gather(1, ofc2.T.long()).T + ofc2 * SCALE
     L = torch.arange(mm, cap + 1, device=dev)
     mlc = bank[:, 32 + L - mm]  # (S, nl)
-    lit = lit_bits.to(torch.int64)
-    window = torch.zeros((S, cap + 1), dtype=torch.int64, device=dev)
+    window = torch.zeros((S, cap + 1), dtype=torch.int32, device=dev)
     steps = torch.empty((seg, S), dtype=torch.int32, device=dev)
     for p in range(seg - 1, -1, -1):
         ahead = mlc + window[:, L - 1]
@@ -115,22 +114,32 @@ def opt_steps_plain(packed: torch.Tensor, mm: int, cap: int,
 
 def opt_steps(packed: torch.Tensor, mm: int, cap: int,
               lit_bits: torch.Tensor | None = None,
-              cost_bank: torch.Tensor | None = None) -> torch.Tensor:
+              cost_bank: torch.Tensor | None = None,
+              stats: torch.Tensor | None = None) -> torch.Tensor:
     """DP over (S, seg) int32 packed segments -> (S, seg) int32 chosen steps.
 
     lit_bits: per-row literal price in SCALE units (a scalar broadcasts;
     default LIT_BITS * SCALE). cost_bank: per-row (128,) bank (one row
     broadcasts; default `default_cost_bank`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    version; CUDA tensors launch the kernel. stats, an (S,) int32 CUDA
+    tensor, gets per row 1 where the kernel walked it on its fast path (every
+    price of its warp's rows in [0, 2^12), seg <= 1024), else 0.
     """
     if packed.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("opt_steps: stats are counted by the CUDA kernel only")
         return opt_steps_plain(packed, mm, cap, lit_bits, cost_bank)
     lit_bits, bank = _operands(packed, mm, cap, lit_bits, cost_bank)
     _kernels.check_cuda(packed, torch.int32, "opt_steps packed")
     S, seg = packed.shape
+    if stats is not None:
+        _kernels.check_cuda(stats, torch.int32, "opt_steps stats")
+        if stats.shape != (S,):
+            raise ValueError(f"opt_steps: stats {tuple(stats.shape)} for {S} rows")
     out = torch.empty((S, seg), dtype=torch.int32, device=packed.device)
     if packed.numel() == 0:
         return out
     _kernels.launch("opt", "tz_opt_steps", packed.data_ptr(), lit_bits.data_ptr(),
-                    bank.data_ptr(), out.data_ptr(), S, seg, mm, cap)
+                    bank.data_ptr(), out.data_ptr(),
+                    None if stats is None else stats.data_ptr(), S, seg, mm, cap)
     return out
