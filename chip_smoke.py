@@ -28,8 +28,18 @@ Phases, in order; any failure exits non-zero:
    K = 0); K1 also the hard rows of `roll_hard_rows` (int64 rows of widths
    2, 3 and 11 with 10^6 rows and of width 16384, byte rows of widths 110600
    and 160, int32 rows of odd width; shifts 0, W, -1, +-3W and beyond), with
-   their times and byte bounds; K8/K9 seeded valid sequences, literals front-compacted
-   or read from 4-stream rows, without and with a 4 KB window, and the hard
+   their times and byte bounds; K2 through its fused entry (one launch for
+   every operand, the casts in the kernel) on tests/torch_cases.py
+   `concat_fused_hard` operands (full windows, prefixes past out_len, empty
+   windows, pk at and past 2^31 and 2^32 and negative, literal offsets at
+   every residue mod 16) at the tier-1 case's shape, at the parse's and at
+   widths and lengths off 16 bytes, and from sources that do not start on
+   16 bytes, and with one int32 operand (`concat_varlen`); K7 also serially
+   (one chunk a block, as the multi-block plan runs it) from seeded rep
+   triples that are not the initial one, on every hard set; K8/K9 seeded
+   valid sequences, literals front-compacted or read from 4-stream rows,
+   without and with a 4 KB window, with the multi-block plan's history
+   windows of 128 KB and 512 KB (offsets to the window's first byte), and the hard
    lists of tests/torch_cases.py `exec_hard_inputs` (overlapping matches at
    off 1-3, a chain of matches each copying the one before, window reads, no
    sequences, output filling N); K4 also the hard rows of `rep_hard_rows`
@@ -93,6 +103,18 @@ Phases, in order; any failure exits non-zero:
    checksummed frames; each decode kernel against its plain version on the
    inputs it received; then 8 of phase 4's blocks as frames without metadata
    (K7's serial mode, literals decoded on the host) back to their bytes.
+   Then multi-block frames through the chained-round plan (K7 serially from
+   the rep triple the round before left, K8 against the carried history),
+   the counts set to 0 just before and read just after each: the
+   SLICE_CONFIG and DEFAULT_CONFIG 4-block frames, the 16 level-3
+   BatchManager frames (timed: 3 `execute()` calls with their lengths
+   fetched, best of 2) and a mixed batch (the first 32 blocks of the
+   DEFAULT_CONFIG batch as one 4 MiB frame, whose history grows to 4 MiB,
+   the 4-block frames, libzstd's multi-block frames of
+   tests/golden/multiblock_frames.json with repeat offsets and matches across
+   blocks, two single-block decode_accel frames), each row equal to its
+   input with the checksums verified, K7 and K8 against their plain versions
+   on the inputs the mixed batch gave them.
 4c. The optimal-parse path at the level-19 pipeline config (min_match 3,
    depth 48, cap 64, 64 KB match windows, LDM, the segment DP K10): the
    bench batch through `compress_blocks_staged_many`, the counts set to 0
@@ -101,7 +123,9 @@ Phases, in order; any failure exits non-zero:
    its (type, length, sha256) against tests/golden/torch_slice4.json; the
    frames of `BatchManager(level=19).compress_batch` over the 16 items
    against the same file; each kernel (K1-K5, K10) against its plain version
-   on the inputs it received in that run; K10 launched at least once.
+   on the inputs it received in that run; K10 launched at least once; the
+   16 level-19 frames decoded by the multi-block plan to their items
+   (timed as the level-3 ones).
 4d. The fused match route (K13) at the pipeline configs of levels 1, 3 and 5:
    `find_matches(..., use_pallas_match=True)` on the inputs `parse_block`
    hands `find_matches` for the bench batch, the counts set to 0 just before
@@ -122,7 +146,9 @@ Phases, in order; any failure exits non-zero:
    bench.py times it (3 `execute()` calls with their lengths fetched, best of
    2, GB/s = 16 MiB over that time) with its peak device memory; and per
    kernel its time by CUDA events at every captured shape, its bound and its
-   plain version's time (K12 also `torch.sort` + `torch.gather`, its
+   plain version's time (K2 on the operands the DEFAULT_CONFIG parse gave
+   its one launch, with the old kernel's time on the same operands from
+   tools/torch_concat_bench.py beside it; K12 also `torch.sort` + `torch.gather`, its
    library call; K13 beside the plain route's `find_matches`, K11 beside the
    deposit tree, both in phase 4d; K12 and K13 also their device time and
    "network ops"), and its bound summed over its launches
@@ -173,6 +199,13 @@ OPT_OPS_PER_LENGTH, OPT_OPS_PER_POSITION = 2, 12
 # index, compare, direction, select).
 MATCH_OPS_PER_PAIR, MATCH_OPS_PER_POSITION = 6, 4
 SORT_OPS_PER_CE = 4
+# K2's stage as commit 2d2f9bf ran it (three launches of its one-operand
+# kernel around int32 casts, the window-base add and three zeroed outputs) on
+# the operands the DEFAULT_CONFIG parse gives the fused launch, on NVIDIA H100
+# 80GB HBM3 at 700.00 W (`tools/torch_concat_bench.py --tree` on that commit;
+# PERF.md section 6): printed beside this run's fused launch.
+CONCAT_PARENT_MS = {"three launches on the device": 0.0617, "the stage on the device": 0.3988,
+                    "three launches by events": 0.2494, "the stage by events": 0.5176}
 # K12's and K13's times before their register network (commit d0443a2) at
 # the shapes that phase 2 times, by CUDA events over back-to-back calls on
 # NVIDIA H100 80GB HBM3 at 700.00 W (`tools/torch_sort_bench.py --tree` on
@@ -400,7 +433,7 @@ def main() -> int:
     K = {
         "roll": (roll.roll_rows, roll.roll_rows_plain, "tpu_zstd_torch/csrc/roll.cu",
                  "tpu_zstd/ops/pallas_roll.py:98 roll_rows"),
-        "concat": (concat.concat_varlen, concat.concat_varlen_plain,
+        "concat": (concat.concat_fused, concat.concat_fused_plain,
                    "tpu_zstd_torch/csrc/concat.cu", "tpu_zstd/ops/pallas_concat.py:129 concat_varlen"),
         "greedy": (greedy.greedy_segments, greedy.greedy_segments_plain,
                    "tpu_zstd_torch/csrc/greedy.cu", "tpu_zstd/ops/pallas_greedy.py:79 greedy_segments"),
@@ -455,11 +488,13 @@ def main() -> int:
         col = torch.arange(x.shape[1], device=x.device)
         return torch.where(col < n.to(torch.int64)[:, None], x, 0)
 
-    def hold(name: str, args: tuple, label: str, kw=None) -> None:
+    def hold(name: str, args: tuple, label: str, kw=None, fns=None) -> None:
+        """The kernel (or fns = (wrapper, plain) of the same kernel) against
+        its plain version on args: exact equality, dtypes and shapes too."""
         kw = kw or {}
         if name == "decode_seq":  # the final rep triple too
             kw = {**kw, "rep_fin": True}
-        kern, plain = K[name][0], K[name][1]
+        kern, plain = fns or (K[name][0], K[name][1])
         a = kern(*args, **kw)
         b = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -471,7 +506,7 @@ def main() -> int:
             a, b = ((*(live_cols(x, args[3]) for x in y[:3]), y[3]) for y in (a, b))
         elif name == "exec":  # live up to out_len
             a, b = (live_cols(a[0], a[1]), a[1]), (live_cols(b[0], b[1]), b[1])
-        elif name in ("sort", "match"):  # tuples of outputs
+        elif name in ("sort", "match") or fns is None and name == "concat":  # tuples of outputs
             pass
         else:
             a, b = (a,), (b,)
@@ -568,7 +603,38 @@ def main() -> int:
         cnt = rng.integers(0, W - off + 1)
         hold("concat", (cu(rng.integers(0, 1 << 30, (B, 64, W), dtype=np.int32)),
                         cu(off.astype(np.int32)), cu(cnt.astype(np.int32)), out_len),
-             f"(128, 64, {W}) -> {out_len}")
+             f"one int32 operand (128, 64, {W}) -> {out_len}",
+             fns=(concat.concat_varlen, concat.concat_varlen_plain))
+    # K2's fused entry (every operand in one launch, the casts in the
+    # kernel) on tests/torch_cases.py concat_fused_hard operands: full
+    # windows, prefixes past out_len, empty windows, pk at and past 2^31 and
+    # 2^32 and negative, literal offsets at every residue mod 16; at the
+    # tier-1 case's shape, at the parse's (128 x 64 x 2048 -> 131072 bytes
+    # and 32768 rows), at widths and lengths off 16 bytes, and from sources
+    # that do not start on 16 bytes (element reads).
+    def fused_ops(**kw):
+        return torch_cases.concat_fused_operands(torch_cases.concat_fused_hard(**kw), cu)
+
+    for label, kw in (("the tier-1 shape", {}),
+                      ("the parse's shape", dict(seed=386, B=B, NW=64, W=2048, lit_len=N,
+                                                 seq_len=32768)),
+                      ("W 100, odd lengths", dict(seed=387, B=4, NW=5, W=100, lit_len=1001,
+                                                  seq_len=333))):
+        kops = fused_ops(**kw)
+        hold("concat", (kops,), f"fused hard operands, {label}")
+    run_k2 = lambda: concat.concat_fused(kops)  # noqa: E731
+    print(f"time [{card}]: K2 fused hard operands, W 100: {_time_ms(run_k2, 20):.4f} ms")
+    kops = fused_ops(seed=386, B=B, NW=64, W=2048, lit_len=N, seq_len=32768)
+    run_k2 = lambda: concat.concat_fused(kops)  # noqa: E731
+    print(f"time [{card}]: K2 fused hard operands, the parse's shape: "
+          f"{_time_ms(run_k2, 20):.4f} ms, queued {_queued_ms(run_k2, 20):.4f} ms")
+    hi = torch_cases.concat_fused_hard(seed=388, B=2, NW=8, W=256, lit_len=777, seq_len=131)
+    kops = torch_cases.concat_fused_operands(hi, cu)
+    shifted = cu(np.concatenate([hi["pk"], hi["pk"][..., :1]], -1))[..., 1:]
+    kops[0] = kops[0]._replace(src=shifted)
+    kops[2] = kops[2]._replace(src=shifted[..., : hi["SC"]])
+    hold("concat", (kops,), "fused hard operands, sources off 16 bytes")
+    del kops, shifted, run_k2
     seg, S = 1024, B * N // 1024
     step = rng.integers(1, 40, (S, seg))
     step = np.minimum(step, seg - np.arange(seg))
@@ -774,10 +840,24 @@ def main() -> int:
               f"{_time_ms(run_s, 5):.4f} ms, on the device "
               f"{_fmt_ms(_device_ms(run_s, 5, KERNEL_SYMBOL['decode_seq']))}")
 
+    # K7 serially (one chunk a block, no records), as the multi-block plan
+    # runs it, from a seeded rep triple that is not the initial one, with its
+    # final triple: the hard sequences of every set.
+    for label, v in hard_seq.items():
+        nb_ = len(v["nseq"])
+        none = np.zeros((nb_, 0), np.int32)
+        sargs = (cu(v["streams"]), cu(v["tbits"]),
+                 decode.SeqTables(*(cu(v[k]) for k in ("sym", "nb", "ns", "logs"))),
+                 cu(v["nseq"]), cu(rng.integers(1, 1 << 20, (nb_, 3)).astype(np.int32)),
+                 cu(none), cu(none), cu(none[..., None]),
+                 max(decompress.MAX_SEQS_DEC, int(v["nseq"].max())), 1, v["max_seqs"])
+        hold("decode_seq", sargs, f"hard sequences, {label}, serial from a carried rep triple")
+    print("phase 2: K7 serial from carried rep triples == plain version, final triples too")
+
     # K8/K9 on seeded valid sequences at the main path's shape (128 blocks of
     # 128 KB): literals front-compacted and from 4-stream rows, no window;
     # and with a 4 KB window.
-    def seq_case(W: int):
+    def seq_case(W: int, rng=rng, far_end: bool = False):
         MS = 24576
         ll = rng.integers(0, 24, (B, MS))
         ll[:, 0] = np.maximum(ll[:, 0], 1)
@@ -788,6 +868,8 @@ def main() -> int:
         far = np.floor(rng.random((B, MS)) * (mstart + W)).astype(np.int64) + 1
         near = np.minimum(rng.integers(1, 9, (B, MS)), mstart + W)
         off = np.where(rng.random((B, MS)) < 0.3, near, far)
+        if far_end:  # every 50th sequence copies from the window's first byte
+            off[:, ::50] = mstart[:, ::50] + W
         live = np.arange(MS)[None, :] < nseq[:, None]
         ll, ml, off = (np.where(live, x, 0).astype(np.int32) for x in (ll, ml, off))
         nlit = ll.sum(1) + rng.integers(0, 32, B)
@@ -800,6 +882,15 @@ def main() -> int:
         args = seq_case(W)
         hold("exec", tuple(args) + (N, W), f"seeded sequences, window {W}")
     lits, nlit = args[0], args[1]  # the window-0 case
+    # K8/K9 at the multi-block plan's history windows of 128 KB and 512 KB,
+    # with offsets reaching the window's first byte.
+    rng_w = np.random.default_rng(15)
+    for W in (131072, 524288):
+        wargs = tuple(seq_case(W, rng_w, far_end=True)) + (N, W)
+        hold("exec", wargs, f"seeded sequences, window {W}, offsets to the window's first byte")
+        print(f"time [{card}]: K8 seeded sequences, window {W}: "
+              f"{_time_ms(lambda: execmod.execute_sequences(*wargs), 10):.4f} ms")
+    del wargs
     seg = torch.clamp((nlit.to(torch.int64) + 3) // 4, min=1)
     col = torch.arange(N // 4 + 64, device=dev)
     rows = []
@@ -952,7 +1043,7 @@ def main() -> int:
     data = make_corpus(B * N)
     blocks = cu(np.frombuffer(data, dtype=np.uint8).reshape(B, N))
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
-    sites = [("roll", bitpack, "roll_rows"), ("concat", lz77, "concat_varlen"),
+    sites = [("roll", bitpack, "roll_rows"), ("concat", lz77, "concat_fused"),
              ("greedy", lz77, "greedy_segments"), ("rep", lz77, "rep_codes"),
              ("chain", fse, "state_chain3"), ("chain", huffman, "state_chain3"),
              ("opt", lz77, "opt_steps")]
@@ -976,11 +1067,11 @@ def main() -> int:
               f"block-body ratio {B * N / int(clens.sum()):.4f}")
         return contents, clens, btypes
 
-    def batch_frame(contents, clens, btypes) -> bytes:
-        """One frame of the batch's B blocks."""
-        parts = [write_frame_header(B * N)]
-        for b in range(B):
-            last = int(b == B - 1)
+    def batch_frame(contents, clens, btypes, nblocks=B) -> bytes:
+        """One frame of the batch's first nblocks blocks."""
+        parts = [write_frame_header(nblocks * N)]
+        for b in range(nblocks):
+            last = int(b == nblocks - 1)
             clen = 1 if int(btypes[b]) == BLOCK_RLE else int(clens[b])
             size = N if int(btypes[b]) == BLOCK_RLE else clen
             parts += [((size << 3) | (int(btypes[b]) << 1) | last).to_bytes(3, "little"),
@@ -1028,6 +1119,7 @@ def main() -> int:
         _fail(f"SLICE_CONFIG 4-block frame differs from the JAX golden ({len(frame)} bytes)")
     print(f"phase 3: compress(make_corpus(4 * 131072), SLICE_CONFIG) frame == JAX golden "
           f"({len(frame)} bytes)")
+    slice_frame = frame  # decoded in phase 4b
     hold_captured(captured1, "phase 3")
     dt, peak = batch_ms(SLICE_CONFIG)
     print(f"time [{card}]: SLICE_CONFIG batch 128x128KB {dt * 1e3:.3f} ms = "
@@ -1060,6 +1152,7 @@ def main() -> int:
     decodes(frame, small, "the 4-block frame")
     print(f"phase 4: compress(make_corpus(4 * 131072), checksum=True) frame == JAX golden "
           f"({len(frame)} bytes)")
+    default_frame = frame  # decoded in phase 4b
 
     gi = golden2["items"]
     base = make_corpus(sum(gi["sizes"]))
@@ -1075,6 +1168,7 @@ def main() -> int:
         decodes(r.output, items[k], f"BatchManager frame {k}")
     print(f"phase 4: BatchManager(level=3).compress_batch: {len(items)} frames == JAX golden "
           f"({sum(gi['sizes'])} bytes in, ratio {mgr.stats.ratio:.4f}, {t_mgr:.2f} s)")
+    bm3 = ([r.output for r in res], items)  # decoded in phase 4b
     print("phase 4: libzstd decode: " + ("every frame decoded to its input" if zstandard
           else "zstandard is not installed here; the frames equal goldens that libzstd "
                "decoded when they were made"))
@@ -1145,6 +1239,70 @@ def main() -> int:
           f"(launches {ser_launches}; {t_ser:.2f} s with the host literal decode)")
     hold_captured(ser_captured, "phase 4b serial")
 
+    # Multi-block frames (the chained-round plan: K7 serially from the rep
+    # triple the round before left, K8 against the carried history): the
+    # SLICE_CONFIG and DEFAULT_CONFIG 4-block frames, the 16 level-3
+    # BatchManager frames (timed), and one mixed batch: the first 32 blocks
+    # of the DEFAULT_CONFIG batch as one 4 MiB frame (history windows up to
+    # 4 MiB), the two 4-block frames, libzstd's multi-block frames of
+    # tests/golden/multiblock_frames.json (repeat offsets and matches across
+    # blocks) and two single-block decode_accel frames; the kernels against
+    # their plain versions on the inputs the mixed batch gave them.
+    def decode_multi(label, frames_m, expect, checksum, hold_kernels=False, timed=False):
+        t0 = time.perf_counter()
+        (o, n), lm, cap_m = record(dec_sites, lambda: decompress.prepare_decompress_batch(
+            frames_m, N).execute(verify_checksum=checksum), True)
+        t_m = time.perf_counter() - t0
+        if lm["decode_seq"] <= 0 or lm["exec"] <= 0 or lm["decode_huf"] != 0:
+            _fail(f"{label}: the multi-block decode launched {lm}")
+        n_h, o_h = n.cpu().numpy(), o.cpu().numpy()
+        bad = [k for k, e in enumerate(expect)
+               if int(n_h[k]) != len(e) or o_h[k, : len(e)].tobytes() != e]
+        if bad:
+            _fail(f"{label}: {len(bad)} of {len(expect)} frames decode to other bytes "
+                  f"(first {bad[:8]})")
+        print(f"{label}: {len(frames_m)} frames == their inputs ({sum(map(len, expect))} bytes, "
+              f"rows {tuple(o.shape)}; K7 / K8 launches an execute() {lm['decode_seq']} / "
+              f"{lm['exec']}{'; checksums verified' if checksum else ''}; {t_m:.2f} s with "
+              f"the prepare)")
+        if hold_kernels:
+            hold_captured(cap_m, label)
+        if timed:
+            plan_m = decompress.prepare_decompress_batch(frames_m, N)
+            plan_m.execute()
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                pending = [plan_m.execute() for _ in range(3)]
+                for _, ln in pending:
+                    ln.cpu()
+                best = min(best, (time.perf_counter() - t0) / 3)
+            nb_m = sum(map(len, expect))
+            run_m = plan_m.execute
+            dev_m = {k: _device_ms(run_m, 3, sym) for k, sym in (
+                ("K7", "decode_sequences_kernel"), ("K8", "exec_sequences_kernel"),
+                ("every kernel", ""))}
+            print(f"time [{card}]: {label} decode, prepare_decompress_batch(...).execute() "
+                  f"{best * 1e3:.3f} ms = {nb_m / best / 1e9:.4f} GB/s (3 executes with lengths "
+                  f"fetched, best of 2); K7 / K8 launches an execute() {lm['decode_seq']} / "
+                  f"{lm['exec']}; on the device an execute(): "
+                  + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in dev_m.items()))
+
+    decode_multi("phase 4b multi-block: SLICE_CONFIG 4-block frame", [slice_frame], [small],
+                 False)
+    decode_multi("phase 4b multi-block: DEFAULT_CONFIG 4-block checksummed frame",
+                 [default_frame], [small], True)
+    decode_multi("phase 4b multi-block: BatchManager(level=3) frames", *bm3, True, timed=True)
+    zspecs, zframes = zip(*((s_, f_) for s_, f_ in zip(torch_cases.multiblock_specs(),
+                                                        torch_cases.multiblock_frames())
+                            if s_["by"] == "zstd"))
+    mixed = [batch_frame(contents, clens, btypes, 32), slice_frame, default_frame, *zframes,
+             frames[0], frames[1]]
+    mixed_in = [data[: 32 * N], small, small, *(z["payload"] for z in zspecs), items[0], items[1]]
+    decode_multi("phase 4b multi-block: mixed batch", mixed, mixed_in, True, hold_kernels=True)
+    del mixed, zframes
+
     # --- 4c. the optimal-parse path (level 19) --------------------------------------------
     cfg19 = _pipeline_config(CompressionConfig.from_level(19))
     gcfg4 = {**golden4["config"], "of_gate": tuple(golden4["config"]["of_gate"])}
@@ -1186,6 +1344,8 @@ def main() -> int:
         decodes(r.output, items4[k], f"level-19 BatchManager frame {k}")
     print(f"phase 4c: BatchManager(level=19).compress_batch: {len(items4)} frames == JAX golden "
           f"({sum(gi4['sizes'])} bytes in, ratio {mgr19.stats.ratio:.4f}, {t_mgr19:.2f} s)")
+    decode_multi("phase 4c multi-block: BatchManager(level=19) frames",
+                 [r.output for r in res19], items4, True, timed=True)
     hold_captured(captured19, "phase 4c")
 
     # --- 4d. the fused match route (K13) at levels 1, 3 and 5; K11 on the deposits ----
@@ -1365,12 +1525,14 @@ def main() -> int:
             return sort_bound_ms(args), "bytes"
         if name == "match":
             return match_bound_ms(*args)
-        if name == "concat":
-            x, off, cnt, out_len = args
-            c = cnt.to(torch.int64)
-            start = torch.clamp(torch.cumsum(c, 1) - c, max=out_len)
-            moved = int(torch.minimum(c, out_len - start).sum())
-            nb = moved * 4 + nbytes(off) + nbytes(cnt) + nbytes(out)
+        if name == "concat":  # per operand its live source elements, offsets, counts, output
+            nb = 0
+            for op, o in zip(args[0], out):
+                c = op.counts.to(torch.int64)
+                start = torch.clamp(torch.cumsum(c, 1) - c, max=op.out_len)
+                moved = int(torch.minimum(c, op.out_len - start).sum())
+                nb += (moved * op.src.element_size() + nbytes(op.counts) + nbytes(o)
+                       + (0 if op.src_off is None else nbytes(op.src_off)))
         elif name == "chain":  # int32 operands; the symbols up to the live end
             rsym_a, nseq_a = args[6], args[7].to(torch.int64)
             live = torch.where(args[5].to(torch.bool), 0, torch.clamp(nseq_a - 1, 0,
@@ -1393,6 +1555,9 @@ def main() -> int:
         return nb / HBM_BYTES_PER_S * 1e3, "bytes"
 
     def shape_of(name, key):
+        if name == "concat":  # per operand: source shape -> out_len and dtype
+            return " + ".join(f"{k[0][0]} -> {k[3]} {str(k[4]).split('.')[-1]}"
+                              for k in key[0][0])
         if name == "chain":
             return f"rows x msb {key[0][6][0]}"
         if name == "decode_seq":
@@ -1536,6 +1701,9 @@ def main() -> int:
         print(f"kernel [{card}] {name}: {per_batch:.4f} ms per batch over "
               f"{all_launches[name]} launches, bound {bound_batch:.4f} ms per batch"
               + (f", on the device {_fmt_ms(dev_batch)}" if name in KERNEL_SYMBOL else ""))
+        if name == "concat":
+            print(f"kernel [{card}] concat: 2d2f9bf's K2 stage on the same operands: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in CONCAT_PARENT_MS.items()))
     k8 = next(r for r in rows_out if r["name"] == "exec")
     k8["name"] = "exec_k8"
     rows_out.append({**k8, "name": "exec_k9", "replaces": K9_REPLACES})

@@ -7,7 +7,10 @@ also on its hard inputs (tests/torch_cases.py seq_hard_inputs, and with
 scrambled records) with its final rep triple, K12 also past one CTA's
 width, K12 and K13 also on their hard sets (SORT_HARD, MATCH_HARD) at
 widths 1024, 8192, 16384 and 65536, K3 and K5 also on their hard inputs
-(greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs), K10 also on
+(greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs), K2 also
+through its fused entry on the hard operands of concat_fused_hard, the
+multi-block decode plan on the golden multi-block frames
+(decompress_multiblock), K10 also on
 the calls of opt_card_calls (its hard calls, OPT_HARD and OPT_HARD_WIDE:
 every row kind at 16397 x 1024, seg 1, 33, 1000 and 4096, cap 127 at mm
 32, mm = cap; OPT_FAST_WIDE, every row of which must take the fast path;
@@ -56,6 +59,7 @@ def test_cuda_kernels_match_plain():
     args = (_t(rng.integers(0, 1000, (3, 8, W)).astype(np.int32)).to(dev),
             _t(off.astype(np.int32)).to(dev), _t(cnt.astype(np.int32)).to(dev), 1024)
     assert torch.equal(concat.concat_varlen(*args), concat.concat_varlen_plain(*args))
+    _check_concat_fused(dev)
     seg = 1024
     step = np.minimum(rng.integers(1, 30, (9, seg)), seg - np.arange(seg))
     m = (rng.random((9, seg)) < 0.5) & (step >= 4)
@@ -101,6 +105,25 @@ def test_cuda_kernels_match_plain():
         items, opt_cfg, device="cpu")
     _check_decode_kernels(dev)
     _check_fused_route_kernels(dev)
+
+
+def _check_concat_fused(dev):
+    """K2's fused entry against its plain version (dtypes too) on the hard
+    operands of tests/torch_cases.py concat_fused_hard: the tier-1 case's,
+    at widths and lengths off 16 bytes, and from a source that does not
+    start on 16 bytes."""
+    def cu(a):
+        return _t(a).to(dev)
+
+    for kw in ({}, dict(seed=387, B=4, NW=5, W=100, lit_len=1001, seq_len=333)):
+        i = torch_cases.concat_fused_hard(**kw)
+        ops = torch_cases.concat_fused_operands(i, cu)
+        shifted = cu(np.concatenate([i["pk"], i["pk"][..., :1]], -1))[..., 1:]
+        off16 = [op._replace(src=shifted[..., : op.src.shape[2]]) if k in (0, 2) else op
+                 for k, op in enumerate(ops)]
+        for x in (ops, off16):
+            for k, (g, w) in enumerate(zip(concat.concat_fused(x), concat.concat_fused_plain(x))):
+                assert g.dtype == w.dtype and torch.equal(g, w), (kw, k)
 
 
 def _check_fused_route_kernels(dev):
@@ -223,3 +246,13 @@ def _check_decode_kernels(dev):
     out, lens = decompress.prepare_decompress_batch(inp["frames"], torch_cases.DEC_N).execute()
     for k, p in enumerate(inp["payloads"]):
         assert int(lens[k]) == len(p) and out[k, : len(p)].cpu().numpy().tobytes() == p
+    # The multi-block plan on the card (K7 serially from carried rep triples,
+    # K8 against the carried history): the golden multi-block frames, the
+    # port's and libzstd's, with their checksums; the window-cap refusal.
+    inp = torch_cases.CASES["decompress_multiblock"].inputs()
+    out, lens = decompress.prepare_decompress_batch(inp["frames"], torch_cases.MB_N).execute(
+        verify_checksum=True)
+    for k, p in enumerate(inp["payloads"]):
+        assert int(lens[k]) == len(p) and out[k, : len(p)].cpu().numpy().tobytes() == p, k
+    with pytest.raises(ValueError):
+        decompress.prepare_decompress_batch(inp["wide"], torch_cases.MB_N)

@@ -17,8 +17,9 @@
   for the port's accel and plain frames, the JAX package's accel frames,
   and stock libzstd's single-block frames at levels 1, 3, 9 and 19;
   `execute(verify_checksum=True)` passes on good frames and raises on a bad
-  checksum; multi-block frames raise NotImplementedError; `device=None`
-  means CUDA.
+  checksum; a batch with libzstd's multi-block frame decodes through the
+  chained-round plan, and a window past its 4 MiB cap raises ValueError;
+  `device=None` means CUDA.
 - The LL/ML tables written into csrc/decode_seq.cu equal constants.py.
 
 Exact equality. One test item (see tests/test_torch_kernels.py).
@@ -274,9 +275,17 @@ def _check_decode_batches(corpus):
     with pytest.raises(ValueError, match="checksum"):
         td.prepare_decompress_batch(port[:-1] + [bytes(bad)], N, device="cpu").execute(
             verify_checksum=True)
-    multi = zstandard.ZstdCompressor(level=3).compress(make_corpus(300000))
-    with pytest.raises(NotImplementedError, match="_prepare_multiblock_plan"):
-        td.prepare_decompress_batch([multi], 131072, device="cpu")
+    # A batch with a multi-block frame takes the chained-round plan: libzstd's
+    # frame with blocks ended by flushes decodes to its input beside a
+    # single-block one; a frame whose window passes the plan's 4 MiB cap
+    # raises ValueError.
+    spec = {"payload": make_corpus(40000), "level": 3, "flush": [N, 9000], "checksum": True}
+    multi = torch_cases.zstd_flushed(spec)
+    _decodes([multi, lead[0]], [spec["payload"], payloads[-1]], verify_checksum=True)
+    wide = (0xFD2FB528).to_bytes(4, "little") + bytes([0x00, 13 << 3])  # 8 MiB window
+    wide += (5 << 3).to_bytes(3, "little") + b"12345" + ((5 << 3) | 1).to_bytes(3, "little")
+    with pytest.raises(ValueError, match="window size"):
+        td.prepare_decompress_batch([wide + b"67890"], N, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             td.prepare_decompress_batch(port[:1], N)  # device=None means CUDA

@@ -4,14 +4,16 @@ Every case of tests/torch_cases.py rebuilds its inputs from a seed with
 numpy, runs the port's function on CPU tensors and compares the digest of
 its output exactly with the JAX package's, recorded in
 tests/golden/torch_cases.json by tools/make_torch_goldens.py. The cases
-cover the first slice (kernels K1-K4, bit deposit, the parse, the
+cover the first slice (kernels K1-K4, K2 also through its fused entry on
+hard operands, bit deposit, the parse, the
 predefined-table encode, SLICE_CONFIG frames at 8-16 KB blocks), the
 second (custom FSE tables per stream, the state chains, the Huffman stages,
 DEFAULT_CONFIG frames and level 1/3/5 item frames at 16 KB blocks, with and
 without checksum) and the third (decode checkpoints, decode_accel frames
 and their sidecar, the host format copies, the plain versions of the decode
 kernels K6-K9, and `prepare_decompress_batch` on the port's accel and plain
-frames and on libzstd's) and the fourth (min_match 3, the near-offset band,
+frames and on libzstd's, and on a batch of multi-block frames of the port
+and of libzstd with its window-cap refusal) and the fourth (min_match 3, the near-offset band,
 the wide sort key, the search over the whole block, LDM, the plain version
 of the segment DP K10 (also on its hard set `opt_hard`), the optimal parse
 with its overflow poison, and
@@ -43,8 +45,8 @@ import zstandard
 
 # Topic -> the cases it checks; every case stands in exactly one topic.
 TOPICS = {
-    "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "greedy", "greedy_hard", "rep",
-                "rep_hard",
+    "kernels": ["roll_u8", "roll_i32", "roll_hard", "concat", "concat_fused", "greedy",
+                "greedy_hard", "rep", "rep_hard",
                 "decode_sequences_serial", "decode_sequences_chunked", "decode_sequences_hard",
                 "decode_huffman",
                 "decode_huffman_hard",
@@ -71,7 +73,7 @@ TOPICS = {
     "default_frames": ["frame_default_8k", "frame_default_16k", "frame_default_16k_checksum",
                        "accel_records", "accel_items_16k", "accel_items_16k_checksum",
                        "decompress_batch_accel", "decompress_batch_plain",
-                       "decompress_batch_zstd"],
+                       "decompress_batch_zstd", "decompress_multiblock"],
     "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64",
                      "items_level7", "items_level12", "items_level19", "items_level22",
                      "frame_whole_block"],

@@ -220,6 +220,89 @@ def _concat_ref(i):
 case("concat", "kernels", _concat_inputs, _concat_port, _concat_ref)
 
 
+def concat_fused_hard(seed: int = 385, B: int = 3, NW: int = 8, W: int = 256,
+                      lit_len: int = 1024, seq_len: int = 384) -> dict:
+    """Hard operands for K2's fused entry (`concat.concat_fused`), laid out as
+    the parse hands them: per window `nseq` sequence rows, then `nlit`
+    literal rows, of an int64 `pk` (B, NW, W) and `key`. Row 0 has full
+    windows (nseq + nlit = W) whose literals pass `lit_len` and whose
+    sequences pass `seq_len`; row 1 has windows without sequences, without
+    literals or empty; the rest are seeded. Rows 0 and 2 give nseq every
+    residue mod 16 (the source offsets of the literal segments). pk holds values at
+    and past 2^31 and 2^32, negative ones and ml << 21 | off with ml up to
+    4095; key holds positions and negative values."""
+    rng = np.random.default_rng(seed)
+    SC = W // 2
+    nseq = rng.integers(0, SC + 1, (B, NW))
+    nseq[0] = SC - 16 + np.arange(NW) % 16  # residues 0 .. NW - 1
+    nseq[1, ::2] = 0
+    if B > 2:  # the other residues
+        nseq[2] = (NW + np.arange(NW)) % 16 + 16 * rng.integers(0, SC // 16, NW)
+    nlit = rng.integers(0, W - nseq + 1)
+    nlit[0] = W - nseq[0]
+    nlit[1, 1::4] = 0
+    nlit[1, 2] = 0
+    ml = rng.integers(0, 4096, (B, NW, W))
+    pk = (ml << 21) | rng.integers(0, 1 << 21, (B, NW, W))
+    pk = np.where(rng.random((B, NW, W)) < 0.2, rng.integers(-2**40, 2**40, (B, NW, W)), pk)
+    special = np.array([2**31, 2**31 - 1, -1, -2**31, 2**32 + 5, -2**40 - 3, 255, 256])
+    pk.reshape(-1)[rng.choice(B * NW * W, 64, replace=False)] = rng.choice(special, 64)
+    key = np.where(rng.random((B, NW, W)) < 0.9, rng.integers(0, W, (B, NW, W)),
+                   rng.integers(-2**33, 2**33, (B, NW, W)))
+    return {"pk": pk.astype(np.int64), "key": key.astype(np.int64),
+            "nseq": nseq.astype(np.int64), "nlit": nlit.astype(np.int64),
+            "SC": SC, "shift": W.bit_length() - 1, "lit_len": lit_len, "seq_len": seq_len}
+
+
+def concat_fused_operands(i: dict, t=None) -> list:
+    """The operands of `concat_fused` for `concat_fused_hard` inputs, as the
+    parse builds them (literal bytes, starts with the window base, pk), and a
+    fourth in int32 (source, counts, output) with literal offsets."""
+    from tpu_zstd_torch.ops.concat import Operand
+
+    t = t or _t
+    pk, key, nseq, nlit = (t(i[k]) for k in ("pk", "key", "nseq", "nlit"))
+    SC = i["SC"]
+    return [
+        Operand(pk, nseq, nlit, i["lit_len"], torch.uint8),
+        Operand(key[..., :SC], None, nseq, i["seq_len"], torch.int64, win_shift=i["shift"]),
+        Operand(pk[..., :SC], None, nseq, i["seq_len"], torch.int64),
+        Operand(pk.to(torch.int32), nseq.to(torch.int32), nlit.to(torch.int32), i["lit_len"],
+                torch.int32),
+    ]
+
+
+def _concat_fused_port(i):
+    from tpu_zstd_torch.ops import concat
+
+    return {f"out{k}": o for k, o in enumerate(concat.concat_fused(concat_fused_operands(i)))}
+
+
+def _concat_fused_ref(i):
+    """JAX's int32 concat_varlen on each operand after the casts of the
+    parse's former chain (the literals `& 0xFF`), then the output casts."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops.pallas_concat import concat_varlen
+
+    def jcat(x, off, cnt, n):
+        return np.asarray(jax.vmap(lambda a, o, c: concat_varlen(a, o, c, n))(
+            jnp.asarray(x.astype(np.int32)), jnp.asarray(off.astype(np.int32)),
+            jnp.asarray(cnt.astype(np.int32))))
+
+    pk, key, nseq, nlit, SC = i["pk"], i["key"], i["nseq"], i["nlit"], i["SC"]
+    zero = np.zeros_like(nseq)
+    starts = key[..., :SC] + (np.arange(key.shape[1]) << i["shift"])[:, None]
+    return {"out0": jcat(pk & 0xFF, nseq, nlit, i["lit_len"]).astype(np.uint8),
+            "out1": jcat(starts, zero, nseq, i["seq_len"]).astype(np.int64),
+            "out2": jcat(pk[..., :SC], zero, nseq, i["seq_len"]).astype(np.int64),
+            "out3": jcat(pk, nseq, nlit, i["lit_len"])}
+
+
+case("concat_fused", "kernels", concat_fused_hard, _concat_fused_port, _concat_fused_ref)
+
+
 def _greedy_inputs():
     rng = np.random.default_rng(1024)
     seg, nseg = 1024, 3
@@ -1383,6 +1466,118 @@ def _dec_batch_ref(i):
 _DEC_FRAMES = {kind: _dec_frames_inputs(kind) for kind in ("accel", "plain", "zstd")}
 for _kind, _make in _DEC_FRAMES.items():
     case(f"decompress_batch_{_kind}", "decode", _make, _dec_batch_port, _dec_batch_ref)
+
+
+# Multi-block frames: 8 KB blocks, max_block the same. The frames are made
+# once by tools/make_torch_goldens.py multiblock (the JAX package's
+# compress_items_tpu, whose frames the port's equal byte for byte, and stock
+# libzstd with blocks ended by flushes) and kept in
+# tests/golden/multiblock_frames.json, so that the case compresses nothing and
+# a machine without `zstandard` decodes libzstd's frames too; those carry
+# repeat offsets and matches across blocks, which frames of blocks
+# compressed on their own never do.
+MB_N = 8192
+MB_FRAMES = GOLDEN.parent / "multiblock_frames.json"
+
+
+def multiblock_specs() -> list[dict]:
+    """The frames of the case `decompress_multiblock`, in batch order: who
+    makes each ("jax": compress_items_tpu at `level`, with a checksum or
+    decode_accel; "zstd": libzstd at `level`, a block ended after each count
+    of input bytes in `flush`) and its payload (corpus slices, seeded random
+    bytes). libzstd's level-19 frame uses repeat offsets from the block
+    before at a block's first sequences: decoded with the triple reset at
+    each block it differs from its payload."""
+    base = make_corpus(8 * MB_N)
+    noise = np.random.default_rng(72).integers(0, 256, MB_N, dtype=np.uint8).tobytes()
+    noise2 = np.random.default_rng(71).integers(0, 256, 4500, dtype=np.uint8).tobytes()
+    jax3 = {"by": "jax", "level": 3, "checksum": True, "decode_accel": False}
+    return [{**jax3, "payload": base[: 3 * MB_N + 5000]},  # 4 blocks
+            {**jax3, "payload": base[3 * MB_N : 3 * MB_N + 4500]},  # 1 block
+            {**jax3, "payload": noise + base[: MB_N // 2]},  # a Raw block first
+            {**jax3, "level": 19, "checksum": False, "payload": base[2 * MB_N : 5 * MB_N]},
+            {**jax3, "checksum": False, "decode_accel": True,
+             "payload": base[MB_N : 3 * MB_N - 100]},
+            {"by": "zstd", "level": 19, "flush": [MB_N, MB_N // 2, MB_N], "checksum": False,
+             "payload": base[5 * MB_N :]},
+            {"by": "zstd", "level": 3, "flush": [4500, 6000], "checksum": True,
+             "payload": noise2 + base[:10000]}]
+
+
+def zstd_flushed(spec: dict) -> bytes:
+    """A libzstd frame of spec's payload with a block ended at each flush
+    (needs `zstandard`)."""
+    import zstandard
+
+    data = spec["payload"]
+    c = zstandard.ZstdCompressor(level=spec["level"], write_checksum=spec["checksum"]).compressobj(
+        size=len(data))
+    out, p = [], 0
+    for n in spec["flush"]:
+        out += [c.compress(data[p : p + n]), c.flush(zstandard.COMPRESSOBJ_FLUSH_BLOCK)]
+        p += n
+    out += [c.compress(data[p:]), c.flush()]
+    return b"".join(out)
+
+
+def multiblock_frames() -> list[bytes]:
+    """The recorded frames of `multiblock_specs`, in the same order."""
+    import base64
+
+    return [base64.b64decode(f["b64"]) for f in json.loads(MB_FRAMES.read_text())["frames"]]
+
+
+def _mb_frames_inputs():
+    """A batch of frames of 1-4 blocks (`multiblock_specs`): level-3 frames
+    with a checksum (4 blocks, 1 block, a Raw block then a Compressed one), a
+    level-19 frame, a level-3 decode_accel frame of 2 blocks (its tail is
+    stripped, its checkpoints unused), libzstd's level-19 frame and its
+    level-3 checksummed one behind a skippable frame; then a frame whose
+    window (8 MiB, no content size) exceeds the plan's cap."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        frames = multiblock_frames()
+        skippable = (0x184D2A50).to_bytes(4, "little") + (3).to_bytes(4, "little") + b"abc"
+        frames[-1] = skippable + frames[-1]
+        # Window descriptor 8 MiB, no content size; two Raw blocks.
+        wide = (0xFD2FB528).to_bytes(4, "little") + bytes([0x00, 13 << 3])
+        wide += ((5 << 3) | 0).to_bytes(3, "little") + b"12345"
+        wide += ((5 << 3) | 1).to_bytes(3, "little") + b"67890"
+        return {"frames": frames, "payloads": [s["payload"] for s in multiblock_specs()],
+                "wide": [wide, frames[0]]}
+
+    return make
+
+
+def _mb_refused(prepare, frames) -> list[int]:
+    try:
+        prepare(frames)
+    except ValueError:
+        return [1]
+    return [0]
+
+
+def _mb_port(i):
+    from tpu_zstd_torch.api import decompress
+
+    out, lens = decompress.prepare_decompress_batch(i["frames"], MB_N, device="cpu").execute(
+        verify_checksum=True)
+    return {**_dec_digest(out, lens, i["payloads"]), "refused": _mb_refused(
+        lambda f: decompress.prepare_decompress_batch(f, MB_N, device="cpu"), i["wide"])}
+
+
+def _mb_ref(i):
+    import jax
+
+    from tpu_zstd.api import decompress
+
+    out, lens = jax.device_get(decompress.prepare_decompress_batch(i["frames"], MB_N).execute(
+        verify_checksum=True))
+    return {**_dec_digest(out, lens, i["payloads"]), "refused": _mb_refused(
+        lambda f: decompress.prepare_decompress_batch(f, MB_N), i["wide"])}
+
+
+case("decompress_multiblock", "decode", _mb_frames_inputs(), _mb_port, _mb_ref)
 
 
 def _staged(kind):

@@ -27,9 +27,15 @@ before anything is written. Targets (default: slice2 cases):
   slice-2 items;
 - cases -> tests/golden/torch_cases.json, the digest of every seeded case in
   tests/torch_cases.py (small shapes: kernels, parse, table choice, state
-  chains, Huffman stages, frames at 8-16 KB blocks, levels 1/3/5).
+  chains, Huffman stages, frames at 8-16 KB blocks, levels 1/3/5);
+- multiblock -> tests/golden/multiblock_frames.json, the multi-block frames
+  of tests/torch_cases.py `multiblock_specs` (the JAX package's
+  `compress_items_tpu` at 8 KB blocks, and stock libzstd with blocks ended by
+  flushes), inputs of the case `decompress_multiblock`; make it before
+  `cases` when the specs change.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4] [cases]
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4]
+        [multiblock] [cases]
 
 About 4 minutes for slice1, 7 for slice2 and slice3, 13 for slice4 (on 8
 cores) and 10 for cases on the CPU. Give slice1-slice4 a fresh process (or
@@ -296,8 +302,33 @@ def cases() -> None:
                                 "cases": {name: out[name] for name in torch_cases.CASES}})
 
 
+def multiblock() -> None:
+    """The case `decompress_multiblock`'s frames, base64, each decoded back
+    by libzstd first."""
+    import base64
+
+    import torch_cases
+
+    frames = []
+    for spec in torch_cases.multiblock_specs():
+        if spec["by"] == "zstd":
+            frame = torch_cases.zstd_flushed(spec)
+        else:
+            cfg = dataclasses.replace(
+                CompressionConfig.from_level(spec["level"]), block_size=torch_cases.MB_N,
+                checksum=ChecksumPolicy.COMPUTE if spec["checksum"] else ChecksumPolicy.NONE,
+                decode_accel=spec["decode_accel"])
+            frame, = compress_items_tpu([spec["payload"]], cfg)
+        _decodes(frame, spec["payload"], f"the {spec['by']} level-{spec['level']} frame")
+        frames.append({**{k: v for k, v in spec.items() if k != "payload"}, "len": len(frame),
+                       "b64": base64.b64encode(frame).decode()})
+    _write("multiblock_frames.json", {
+        "source": f"tools/make_torch_goldens.py: tpu_zstd (JAX, CPU) and zstandard "
+                  f"{zstandard.__version__}", "frames": frames})
+
+
 TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "slice4": slice4,
-           "cases": cases}
+           "multiblock": multiblock, "cases": cases}
 
 
 def main(argv: list[str]) -> None:

@@ -20,8 +20,16 @@ device, uploaded once at prepare time so `execute()` does device work only:
 On CUDA tensors the kernels are the path (ops/decode_lanes.py,
 ops/exec.py); on the CPU their plain versions run. Frames are grouped by
 decode size class (chunk-count buckets) so small blocks do not pad to the
-batch's largest. Multi-block frames (`_prepare_multiblock_plan`) belong to
-a later slice and raise NotImplementedError.
+batch's largest.
+
+A batch with a multi-block frame takes the chained-round plan
+(`_prepare_multiblock_plan`, counterpart of the reference's): every block of
+every frame is parsed at prepare time (literals and tables on the host, as
+the reference does) and uploaded as rounds, block k of every frame in round
+k; `execute()` decodes round after round on the device, K7 serially with
+the repeat offsets carried from the round before, K8 against the history
+window carried from the rounds before, then joins the rounds into one row
+per frame.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from ..constants import (
+    BLOCK_COMPRESSED,
     BLOCK_RAW,
     BLOCK_RLE,
     LL_DEFAULT_LOG,
@@ -52,6 +61,11 @@ from ..ops.decode_lanes import decode_huffman_lanes, decode_sequences_lanes
 from ..ops.exec import execute_sequences
 from ..ops.pipeline import resolve_device
 from .manager import _bucket
+
+# The multi-block plan: sequence rows a block (ceil(128K / 3), chunk-aligned)
+# and the history it keeps (4 MiB).
+MAX_SEQS_DEC = 44032
+PLAN_WINDOW_CAP = 1 << 22
 
 
 class _BlockPlan:
@@ -171,6 +185,10 @@ def _parse_block_plan(body: bytes, prev_tables: SeqDecodeTables | None, prev_huf
     return plan, SeqDecodeTables(*dts), huff_table
 
 
+def _upload(a, dev, dtype=torch.int32) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+
 def _skip_skippable(f: bytes) -> int:
     pos = 0
     while SKIPPABLE_MAGIC_MIN <= int.from_bytes(f[pos : pos + 4], "little") <= SKIPPABLE_MAGIC_MAX:
@@ -195,8 +213,10 @@ class DecompressPlan:
         self._checksums = checksums or [None] * nf
 
     def execute(self, verify_checksum: bool = False):
-        """Device-only decode. Returns (out (B, max_block) uint8, lengths
-        (B,) int32), frame i in row i; bytes past lengths[i] are unspecified.
+        """Device-only decode. Returns (out (B, max_block) uint8, or (B, MO)
+        with MO the largest content size bucketed for a batch with
+        multi-block frames, lengths (B,) int32), frame i in row i; bytes
+        past lengths[i] are unspecified (zero in the multi-block plan).
 
         verify_checksum=True also copies the outputs to the host and checks
         each frame's stored XXH64 content checksum (frames without one are
@@ -227,23 +247,25 @@ class DecompressPlan:
 
 def decompress_batch_to_device(frames: list[bytes], max_block: int = 128 * 1024, device=None):
     """One-shot decompression (prepare + execute): (out (B, max_block) uint8,
-    lengths (B,)), both on `device` (None means CUDA)."""
+    or (B, MO) for a batch with multi-block frames, lengths (B,)), both on
+    `device` (None means CUDA)."""
     return prepare_decompress_batch(frames, max_block, device).execute()
 
 
 def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
                              device=None) -> DecompressPlan:
-    """Parse single-block frames, build their decode tables and upload
-    everything to `device` (None means CUDA; raises without it)."""
+    """Parse the frames, build their decode tables and upload everything to
+    `device` (None means CUDA; raises without it). Single-block frames take
+    the size-grouped plan; a batch with a multi-block frame takes
+    `_prepare_multiblock_plan`."""
     dev = resolve_device(device)
+    # A batch with a multi-block frame takes the chained-round plan.
     for f in frames:
         pos = _skip_skippable(f)
         h = parse_frame_header(f[pos:])
         bh = int.from_bytes(f[pos + h.header_size : pos + h.header_size + 3], "little")
         if not (bh & 1):
-            raise NotImplementedError(
-                "multi-block frames (_prepare_multiblock_plan) are not supported by the port "
-                "yet")
+            return _prepare_multiblock_plan(frames, max_block, dev)
 
     nf = len(frames)
     plans: list[_BlockPlan | None] = []
@@ -301,7 +323,7 @@ def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
                 litdev_set.add(i)
 
     def t(a, dtype=torch.int32):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+        return _upload(a, dev, dtype)
 
     def prepare_group(idxs: list[int]):
         """Stage and upload one size-class group; returns a zero-argument
@@ -437,3 +459,177 @@ def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
     inv = np.empty(nf, np.int64)
     inv[np.asarray(order)] = np.arange(nf)
     return DecompressPlan(runners, nf, inv, checksums, dev)
+
+
+def _carry_window(win_prev: torch.Tensor, out: torch.Tensor, olen: torch.Tensor, Wn: int):
+    """The history before the next round: per row the right-aligned last Wn
+    bytes of concat(win_prev, out[:, :olen]) (reference `_carry_window`, a
+    gather there too)."""
+    Wp, M = win_prev.shape[1], out.shape[1]
+    idx = torch.arange(Wn, device=out.device) - Wn + olen.to(torch.int64)[:, None]
+    out_g = out.gather(1, torch.clamp(idx, 0, M - 1))
+    win_g = win_prev.gather(1, torch.clamp(idx + Wp, 0, Wp - 1))
+    return torch.where(idx >= 0, out_g, win_g)
+
+
+def _assemble_rounds(outs: torch.Tensor, lens: torch.Tensor, MO: int):
+    """(R, B, M) round outputs and (R, B) lengths -> the contiguous (B, MO)
+    uint8 rows, zero past each row's total, and the totals (B,) int32
+    (reference `_assemble_rounds`)."""
+    R, B, M = outs.shape
+    lens = lens.to(torch.int64)
+    cum = torch.cumsum(lens, 0)  # (R, B) inclusive
+    start = cum - lens
+    j = torch.arange(MO, device=outs.device)
+    # The round of output position j: the rounds that end at or before j.
+    rsel = torch.searchsorted(cum.T.contiguous(), j.expand(B, MO).contiguous(), right=True)
+    rsel = torch.clamp(rsel, max=R - 1)
+    pos = torch.clamp(j - start.T.gather(1, rsel), 0, M - 1)
+    out = outs.permute(1, 0, 2).reshape(B, R * M).gather(1, rsel * M + pos)
+    total = cum[-1]
+    return torch.where(j < total[:, None], out, 0).to(torch.uint8), total.to(torch.int32)
+
+
+def _prepare_multiblock_plan(frames: list[bytes], max_block: int, dev) -> DecompressPlan:
+    """Prepared plan for a batch with multi-block frames (reference
+    `_prepare_multiblock_plan`): every block of every frame is parsed and
+    uploaded at prepare time, block k of each frame in round k (Repeat-mode
+    sequence tables and the treeless Huffman table carried across a frame's
+    blocks); `execute()` chains the rounds on the device with the repeat
+    offsets and the history window carried from round to round, then joins
+    them into (B, MO) rows. Decode-acceleration tails are stripped (their
+    checkpoints are unused) and leading skippable frames skipped. Raises
+    ValueError for a frame whose window (bounded by its content size)
+    exceeds PLAN_WINDOW_CAP."""
+    nf = len(frames)
+    stripped, hdrs, cursors = [], [], []
+    for f in frames:
+        f = f[_skip_skippable(f):]
+        meta, frame_end = parse_accel_tail(f)
+        if meta is not None:
+            f = f[:frame_end]
+        hdr = parse_frame_header(f)
+        stripped.append(f)
+        hdrs.append(hdr)
+        cursors.append(hdr.header_size)
+    frames = stripped
+    # Past the cap the plan no longer holds history the frame may reference.
+    for i, h in enumerate(hdrs):
+        need = h.window_size or h.content_size or 0
+        if h.content_size is not None:
+            need = min(need, h.content_size)
+        if need > PLAN_WINDOW_CAP:
+            raise ValueError(f"frame {i}: window size {need} exceeds the prepared-plan cap "
+                             f"({PLAN_WINDOW_CAP}); the port has no long-window decoder yet")
+    window_cap = max(4096, -(-min(max(h.window_size or h.content_size or (1 << 22)
+                                      for h in hdrs), PLAN_WINDOW_CAP) // 4096) * 4096)
+    done = [False] * nf
+    seq_tables: list = [None] * nf
+    huf_tables: list = [None] * nf
+    rounds: list[dict] = []
+    while not all(done):
+        entry: dict = {}
+        for i, f in enumerate(frames):
+            if done[i]:
+                continue
+            pos = cursors[i]
+            if pos + 3 > len(f):
+                raise ValueError(f"truncated frame {i}: missing block header")
+            bh = int.from_bytes(f[pos : pos + 3], "little")
+            pos += 3
+            last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
+            if pos + (1 if btype == BLOCK_RLE else bsize) > len(f):
+                raise ValueError(f"truncated frame {i}: block body exceeds input")
+            if btype == BLOCK_RAW:
+                entry[i] = f[pos : pos + bsize]
+                pos += bsize
+            elif btype == BLOCK_RLE:
+                entry[i] = f[pos : pos + 1] * bsize
+                pos += 1
+            elif btype == BLOCK_COMPRESSED:
+                entry[i], seq_tables[i], huf_tables[i] = _parse_block_plan(
+                    f[pos : pos + bsize], seq_tables[i], huf_tables[i])
+                pos += bsize
+            else:
+                raise ValueError("reserved block type")
+            nbytes = entry[i].nlit if isinstance(entry[i], _BlockPlan) else len(entry[i])
+            if nbytes > max_block or (isinstance(entry[i], _BlockPlan)
+                                      and entry[i].nbseq > MAX_SEQS_DEC):
+                raise ValueError(f"frame {i}: a block exceeds max_block ({max_block} bytes) or "
+                                 f"{MAX_SEQS_DEC} sequences")
+            cursors[i] = pos
+            done[i] = bool(last)
+        rounds.append(entry)
+
+    def t(a, dtype=torch.int32):
+        return _upload(a, dev, dtype)
+
+    B = _bucket(nf, lo=1)
+    staged = []
+    for entry in rounds:
+        plans_r = [p for p in entry.values() if isinstance(p, _BlockPlan)]
+        swidth = _bucket(max(max((len(p.stream) for p in plans_r), default=1), 64), lo=64)
+        streams = np.zeros((B, swidth), np.uint8)
+        tbits = np.zeros(B, np.int32)
+        sym = np.zeros((B, 3, TSIZE_MAX), np.int32)
+        nb = np.zeros((B, 3, TSIZE_MAX), np.int32)
+        ns = np.zeros((B, 3, TSIZE_MAX), np.int32)
+        logs = np.zeros((B, 3), np.int32)
+        nseq = np.zeros(B, np.int32)
+        lits = np.zeros((B, max_block), np.uint8)
+        nlit = np.zeros(B, np.int32)
+        for i, p in entry.items():
+            if isinstance(p, _BlockPlan):
+                streams[i, : len(p.stream)] = np.frombuffer(p.stream, np.uint8)
+                tbits[i] = p.total_bits
+                nseq[i] = p.nbseq
+                lits[i, : p.nlit] = np.frombuffer(p.lits, np.uint8)
+                nlit[i] = p.nlit
+                if p.tables is not None:
+                    sym[i], nb[i], ns[i], logs[i] = p.tables
+            else:
+                lits[i, : len(p)] = np.frombuffer(p, np.uint8)
+                nlit[i] = len(p)
+        staged.append({
+            "streams": t(streams, torch.uint8), "tbits": t(tbits),
+            # Packed once here, as K7 takes them, not on every execute().
+            "tables": pack_seq_tables(SeqTables(t(sym), t(nb), t(ns), t(logs))),
+            "nseq": t(nseq), "lits": t(lits, torch.uint8), "nlit": t(nlit),
+            "any_seqs": any(p.nbseq > 0 for p in plans_r),
+        })
+    nr = len(rounds)
+    MO = _bucket(max(max((h.content_size or nr * max_block) for h in hdrs), 1), lo=4096)
+    rep_init = t(np.tile(np.asarray(REPCODE_INIT, np.int32), (B, 1)))
+    none = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+
+    def run():
+        rep = rep_init
+        win = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
+        Wcur, have_ub = 1, 0
+        outs, lens = [], []
+        for r, st in enumerate(staged):
+            if st["any_seqs"]:
+                # K7 serially (one chunk a block), from the repeat offsets the
+                # round before left; its final triple goes to the next round.
+                ll, ml, off, rep = decode_sequences_lanes(
+                    st["streams"], st["tbits"], st["tables"], st["nseq"], rep, none, none,
+                    none.reshape(B, 0, 3), MAX_SEQS_DEC, 1, MAX_SEQS_DEC, rep_fin=True)
+                out, out_len = execute_sequences(st["lits"], st["nlit"], ll, ml, off, st["nseq"],
+                                                 win, max_block, Wcur)
+            else:
+                out, out_len = st["lits"], st["nlit"]
+            outs.append(out)
+            lens.append(out_len.to(torch.int32))
+            if r + 1 < nr:
+                # The history grows by a block a round up to the window cap,
+                # in powers of two from 4 KB, as the reference's executor sees it.
+                have_ub = min(window_cap, have_ub + max_block)
+                Wnext = _bucket(max(have_ub, 4096), lo=4096)
+                win = _carry_window(win, out, out_len, Wnext)
+                Wcur = Wnext
+        return _assemble_rounds(torch.stack(outs), torch.stack(lens), MO)
+
+    checksums = [int.from_bytes(frames[i][cursors[i] : cursors[i] + 4], "little")
+                 if hdrs[i].has_checksum and cursors[i] + 4 <= len(frames[i]) else None
+                 for i in range(nf)]
+    return DecompressPlan([(run, nf)], nf, None, checksums, dev)

@@ -41,7 +41,7 @@ I32 = ctypes.c_int
 # C entry point -> argument types (pointers, sizes, stream last).
 SIGNATURES = {
     "tz_roll_rows": (P, P, P, I64, I64, I32, P),
-    "tz_concat_varlen": (P, P, P, P, I32, I32, I32, I32, P),
+    "tz_concat_fused": (P, I32, I32, I32, P),
     "tz_greedy_segments": (P, P, I64, I32, P),
     "tz_rep_codes": (P, P, P, I32, I32, P),
     "tz_state_chain3": (P,) * 7 + (I32, P, I32) + (P,) * 4 + (I32, I32, I32, P),

@@ -65,24 +65,24 @@ def _pack_words(streams: torch.Tensor) -> torch.Tensor:
 def _read(words: torch.Tensor, wbase: torch.Tensor, nw: int, bits_left: torch.Tensor, n):
     """n (<= 32) bits [bits_left - n, bits_left) of each row's stream.
 
-    words: flat u32 words of all streams, nw a row; wbase (R,) each row's
-    first word; positions outside the row read as zeros. Returns (value,
-    bits_left - n).
+    words: flat u32 words of all streams, each row's nw words between two
+    zero words; wbase (R,) each row's first word; positions outside the row
+    read as zeros. Returns (value, bits_left - n).
     """
-    SW = words.shape[0]
     nl = bits_left - n
     w = nl >> 5  # floor: negative below the stream start
-    lo = torch.where((w >= 0) & (w < nw), words[torch.clamp(wbase + w, 0, SW - 1)], 0)
-    hi = torch.where((w >= -1) & (w + 1 < nw), words[torch.clamp(wbase + w + 1, 0, SW - 1)], 0)
+    lo = words[wbase + torch.clamp(w, -1, nw)]
+    hi = words[wbase + torch.clamp(w + 1, -1, nw)]
     v = ((lo | ((hi & 0x7FFFFFFF) << 32)) >> (nl & 31)) & ((1 << n) - 1)
     return v, nl
 
 
 def _stream_words(streams: torch.Tensor, rows: torch.Tensor):
-    """Flat words of (B, S) streams, the first word of each row's stream for
-    `rows` (R,) block indices, and the words a row."""
-    words = _pack_words(streams)
-    return words.reshape(-1), rows * words.shape[1], words.shape[1]
+    """Flat words of (B, S) streams, each row's between two zero words, the
+    first word of each row's stream for `rows` (R,) block indices, and the
+    words a row."""
+    words = torch.nn.functional.pad(_pack_words(streams), (1, 1))
+    return words.reshape(-1), rows * words.shape[1] + 1, words.shape[1] - 2
 
 
 def decode_sequences_chunks(

@@ -31,7 +31,7 @@ import torch
 
 from ..constants import ML_BASELINE, ML_BITS
 from .bitpack import dynroll_left
-from .concat import concat_varlen
+from .concat import Operand, concat_fused
 from .fse import highbit32, ml_code
 from .greedy import greedy_segments
 from .match import match_windows
@@ -513,12 +513,15 @@ def parse_block(
         e_key_w, e_pk_w = _sort_unique(selk, pk.reshape(B, nwin, W))
         nseq_w = isq.sum(-1)
         nlit_w = isl.sum(-1)
-        startsw = e_key_w[..., :SC] + (torch.arange(nwin, device=dev) << ew_log)[:, None]
-        pkw = e_pk_w[..., :SC]
-        zero_w = torch.zeros_like(nseq_w)
-        lits = concat_varlen((e_pk_w & 0xFF).to(torch.int32), nseq_w, nlit_w, N).to(torch.uint8)
-        starts = concat_varlen(startsw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
-        pk_acc = concat_varlen(pkw.to(torch.int32), zero_w, nseq_w, max_seqs).to(torch.int64)
+        # One K2 launch joins the literal bytes (the low byte of pk), the
+        # sequence starts (the window base w << ew_log added in the kernel)
+        # and pk, read where the sort left them; the int32 casts of the JAX
+        # path (pk is int32 there, so ml << 21 wraps) happen in the kernel.
+        lits, starts, pk_acc = concat_fused([
+            Operand(e_pk_w, nseq_w, nlit_w, N, torch.uint8),
+            Operand(e_key_w[..., :SC], None, nseq_w, max_seqs, torch.int64, win_shift=ew_log),
+            Operand(e_pk_w[..., :SC], None, nseq_w, max_seqs, torch.int64),
+        ])
     else:
         # One compaction sort over the block: the key is the position, so
         # sequence rows sort to the front with their starts as keys.
