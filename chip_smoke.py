@@ -39,7 +39,8 @@ Phases, in order; any failure exits non-zero:
    triples that are not the initial one, on every hard set; K8/K9 seeded
    valid sequences, literals front-compacted or read from 4-stream rows,
    without and with a 4 KB window, with the multi-block plan's history
-   windows of 128 KB and 512 KB (offsets to the window's first byte), and the hard
+   windows of 128 KB and 512 KB and with decompress_batch_tpu's at 8 MiB (2
+   blocks; offsets to the window's first byte), and the hard
    lists of tests/torch_cases.py `exec_hard_inputs` (overlapping matches at
    off 1-3, a chain of matches each copying the one before, window reads, no
    sequences, output filling N); K4 also the hard rows of `rep_hard_rows`
@@ -140,6 +141,25 @@ Phases, in order; any failure exits non-zero:
    tree; offsets the exclusive cumsum, M padded to 128 with zero-length
    fields at the last offset): its first num_words words equal the tree's,
    and it equals its plain version. The main path keeps the tree.
+4e. The public surface: `Manager(level=3).compress` of the bench corpus as
+   one 16 MiB item (past cpu_threshold, so on the card; counts set to 0
+   just before and read just after) against tests/golden/torch_slice5.json;
+   `prepare_decompress_batch` refuses its 16 MiB window;
+   `Manager(execution_path=ExecutionPath.TPU_BATCH).decompress` of it
+   (`decompress_batch_tpu`: 128 rounds of K7 serially and K8 against a
+   history that grows to 16 MiB, counts set to 0 just before and read just
+   after) returns the input, timed (wall, the host parse, the device half
+   best of 2, K7's and K8's device time, K7's serial cost a round and a
+   sequence), K7 and K8 against their plain versions on the inputs it gave
+   them; `BatchManager(level=3).decompress_batch(use_tpu=True)` over phase
+   4's 16 frames, libzstd's multi-block frames of
+   tests/golden/multiblock_frames.json and the 16 MiB frame: every status
+   SUCCESS, every output its input, K7 and K8 launched (nothing fell through
+   to the host); `tpu_zstd_torch.compress` of 256 KB with a checksum takes
+   the host route (no launch) and round-trips through
+   `tpu_zstd_torch.decompress` on the host and `decompress_batch_tpu` on
+   the card; `StreamingDecompressor` fed phase 3's and phase 4's 4-block
+   frames in 4 KB chunks returns their inputs.
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
    of 2), peak device memory, the parse and encode stages; at level 19 the
    pipelined batch (best of 2) and its peak device memory; the decode as
@@ -302,6 +322,27 @@ def _device_ms(fn, iters: int, kernel):
     return sum(us) / iters / 1e3 if us else None
 
 
+def _device_ms_by_name(fn, patterns: dict) -> dict:
+    """Device milliseconds of one call of fn (after a warm-up call) from one
+    torch.profiler (CUPTI) trace: per label the kernels whose name contains
+    its pattern ("" matches every kernel); None where none ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for label, pat in patterns.items():
+        us = [e.device_time_total for e in events if pat in e.name]
+        out[label] = sum(us) / 1e3 if us else None
+    return out
+
+
 def _fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
@@ -378,11 +419,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_cases  # the seeded hard inputs of K4 and K8/K9
     from tpu_zstd_torch.api import decompress
-    from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig
-    from tpu_zstd_torch.api.manager import BatchManager, _pipeline_config, compress_items
+    from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig, ExecutionPath, Status
+    from tpu_zstd_torch.api.manager import (
+        BatchManager,
+        Manager,
+        StreamingDecompressor,
+        _pipeline_config,
+        compress_items,
+    )
     from tpu_zstd_torch.constants import BLOCK_RLE
     from tpu_zstd_torch.corpus import make_corpus
-    from tpu_zstd_torch.format.frame import write_frame_header
+    from tpu_zstd_torch.format.frame import parse_frame_header, write_frame_header
     from tpu_zstd_torch.format.xxhash import content_checksum
     from tpu_zstd_torch.ops import (
         _kernels, bitpack, chain, concat, decode, decode_lanes, deposit, fse, greedy, huffman,
@@ -408,6 +455,7 @@ def main() -> int:
     golden2 = json.loads((ROOT / "tests" / "golden" / "torch_slice2.json").read_text())
     golden3 = json.loads((ROOT / "tests" / "golden" / "torch_slice3.json").read_text())
     golden4 = json.loads((ROOT / "tests" / "golden" / "torch_slice4.json").read_text())
+    golden5 = json.loads((ROOT / "tests" / "golden" / "torch_slice5.json").read_text())
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = _card_line()
@@ -857,24 +905,24 @@ def main() -> int:
     # K8/K9 on seeded valid sequences at the main path's shape (128 blocks of
     # 128 KB): literals front-compacted and from 4-stream rows, no window;
     # and with a 4 KB window.
-    def seq_case(W: int, rng=rng, far_end: bool = False):
+    def seq_case(W: int, rng=rng, far_end: bool = False, rows: int = B):
         MS = 24576
-        ll = rng.integers(0, 24, (B, MS))
+        ll = rng.integers(0, 24, (rows, MS))
         ll[:, 0] = np.maximum(ll[:, 0], 1)
-        ml = rng.integers(3, 64, (B, MS))
+        ml = rng.integers(3, 64, (rows, MS))
         end = np.cumsum(ll + ml, 1)
-        nseq = np.minimum((end <= N - 64).sum(1), rng.integers(MS // 2, MS + 1, B))
+        nseq = np.minimum((end <= N - 64).sum(1), rng.integers(MS // 2, MS + 1, rows))
         mstart = end - ml  # the output position of each match
-        far = np.floor(rng.random((B, MS)) * (mstart + W)).astype(np.int64) + 1
-        near = np.minimum(rng.integers(1, 9, (B, MS)), mstart + W)
-        off = np.where(rng.random((B, MS)) < 0.3, near, far)
+        far = np.floor(rng.random((rows, MS)) * (mstart + W)).astype(np.int64) + 1
+        near = np.minimum(rng.integers(1, 9, (rows, MS)), mstart + W)
+        off = np.where(rng.random((rows, MS)) < 0.3, near, far)
         if far_end:  # every 50th sequence copies from the window's first byte
             off[:, ::50] = mstart[:, ::50] + W
         live = np.arange(MS)[None, :] < nseq[:, None]
         ll, ml, off = (np.where(live, x, 0).astype(np.int32) for x in (ll, ml, off))
-        nlit = ll.sum(1) + rng.integers(0, 32, B)
-        lits = rng.integers(0, 256, (B, N), dtype=np.uint8)
-        window = rng.integers(0, 256, (B, W), dtype=np.uint8)
+        nlit = ll.sum(1) + rng.integers(0, 32, rows)
+        lits = rng.integers(0, 256, (rows, N), dtype=np.uint8)
+        window = rng.integers(0, 256, (rows, W), dtype=np.uint8)
         return [cu(x) for x in (lits, nlit.astype(np.int32), ll, ml, off,
                                 nseq.astype(np.int32), window)]
 
@@ -883,12 +931,14 @@ def main() -> int:
         hold("exec", tuple(args) + (N, W), f"seeded sequences, window {W}")
     lits, nlit = args[0], args[1]  # the window-0 case
     # K8/K9 at the multi-block plan's history windows of 128 KB and 512 KB,
-    # with offsets reaching the window's first byte.
+    # and at 8 MiB (2 blocks), a history decompress_batch_tpu carries past the
+    # plan's 4 MiB, with offsets reaching the window's first byte.
     rng_w = np.random.default_rng(15)
-    for W in (131072, 524288):
-        wargs = tuple(seq_case(W, rng_w, far_end=True)) + (N, W)
-        hold("exec", wargs, f"seeded sequences, window {W}, offsets to the window's first byte")
-        print(f"time [{card}]: K8 seeded sequences, window {W}: "
+    for W, rows in ((131072, B), (524288, B), (1 << 23, 2)):
+        wargs = tuple(seq_case(W, rng_w, far_end=True, rows=rows)) + (N, W)
+        hold("exec", wargs, f"seeded sequences, {rows} blocks, window {W}, offsets to the "
+             "window's first byte")
+        print(f"time [{card}]: K8 seeded sequences, {rows} blocks, window {W}: "
               f"{_time_ms(lambda: execmod.execute_sequences(*wargs), 10):.4f} ms")
     del wargs
     seg = torch.clamp((nlit.to(torch.int64) + 3) // 4, min=1)
@@ -1469,6 +1519,138 @@ def main() -> int:
     del cap_dep, got, kargs, tree_words, vals, lens, offs, lens64
     print(f"phase 4d: done ({time.perf_counter() - t0:.1f} s)")
 
+    # --- 4e. the public surface: Manager, decompress_batch_tpu, BatchManager, host codec --
+    # The bench corpus as one 16 MiB item through Manager(level=3) (past
+    # cpu_threshold: the card), against tests/golden/torch_slice5.json; the
+    # prepared plan refuses its 16 MiB window; decompress_batch_tpu decodes
+    # it on the card (Manager on the TPU_BATCH path): 128 rounds of K7
+    # serially and K8 against a history that grows to 16 MiB, timed, each
+    # kernel against its plain version on the inputs it received; then
+    # BatchManager.decompress_batch(use_tpu=True) over phase 4's 16 frames,
+    # libzstd's multi-block frames and the 16 MiB frame; the host codec
+    # (tpu_zstd_torch.compress of 256 KB, decoded on the host and on the
+    # card) and the streaming decoder on the 4-block frames in 4 KB chunks.
+    t4e = time.perf_counter()
+    if golden5["size"] != len(data) or golden5["config"]["level"] != 3:
+        _fail("phase 4e: torch_slice5.json is not the level-3 frame of the bench corpus")
+    m3 = Manager(level=3)
+    t0 = time.perf_counter()
+    frame16, pub_c_launches, _ = record([], lambda: m3.compress(data), True)
+    t_c16 = time.perf_counter() - t0
+    if (len(frame16), _sha(frame16)) != (golden5["len"], golden5["sha256"]):
+        _fail(f"phase 4e: Manager(level=3).compress of the 16 MiB corpus differs from the JAX "
+              f"golden ({len(frame16)} bytes)")
+    for k in ("roll", "concat", "greedy", "rep", "chain"):
+        if pub_c_launches[k] <= 0:
+            _fail(f"phase 4e: kernel {k} was not launched by Manager(level=3).compress")
+    decodes(frame16, data, "the 16 MiB Manager frame")
+    hdr16 = parse_frame_header(frame16)
+    if hdr16.window_size != golden5["window_size"] or hdr16.window_size <= decompress.PLAN_WINDOW_CAP:
+        _fail(f"phase 4e: the 16 MiB frame declares a window of {hdr16.window_size}")
+    print(f"phase 4e: Manager(level=3).compress(16 MiB) on the card == JAX golden "
+          f"({len(frame16)} bytes, window {hdr16.window_size}; launches {pub_c_launches}; "
+          f"{t_c16:.2f} s)")
+    try:
+        decompress.prepare_decompress_batch([frame16])
+    except ValueError as e:
+        print(f"phase 4e: prepare_decompress_batch refuses the frame: {e}")
+    else:
+        _fail("phase 4e: prepare_decompress_batch accepted a 16 MiB window")
+
+    mdec = Manager(execution_path=ExecutionPath.TPU_BATCH)
+    t0 = time.perf_counter()
+    out16, pub_launches, pub_captured = record(dec_sites, lambda: mdec.decompress(frame16), True)
+    t_d16 = time.perf_counter() - t0
+    if out16 != data:
+        _fail("phase 4e: decompress_batch_tpu returned other bytes than the 16 MiB input")
+    if pub_launches["decode_seq"] <= 0 or pub_launches["exec"] <= 0 or pub_launches["decode_huf"]:
+        _fail(f"phase 4e: the long-window decode launched {pub_launches}")
+    t0 = time.perf_counter()
+    parsed16 = decompress.parse_batch([frame16])
+    t_p16 = time.perf_counter() - t0
+    nr16 = len(parsed16.rounds)
+    nseq16 = sum(p.nbseq for r in parsed16.rounds for p in r.values()
+                 if isinstance(p, decompress._BlockPlan))
+    best16 = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        decompress.decode_parsed(parsed16)
+        best16 = min(best16, time.perf_counter() - t0)
+    dev16 = _device_ms_by_name(lambda: decompress.decode_parsed(parsed16), {
+        "K7": "decode_sequences_kernel", "K8": "exec_sequences_kernel", "every kernel": ""})
+    k7_round = None if dev16["K7"] is None else dev16["K7"] / nr16
+    print(f"time [{card}]: 16 MiB frame, Manager(execution_path=TPU_BATCH).decompress "
+          f"{t_d16:.3f} s = {len(data) / t_d16 / 1e9:.4f} GB/s, of which the host parse "
+          f"(parse_batch, pure Python) {t_p16:.3f} s; the device half (decode_parsed: {nr16} "
+          f"rounds staged, K7 serially, K8, history carried to {hdr16.window_size}, drained "
+          f"{decompress.DRAIN_BEHIND} rounds behind) {best16:.3f} s = "
+          f"{len(data) / best16 / 1e9:.4f} GB/s (best of 2); K7 / K8 launches "
+          f"{pub_launches['decode_seq']} / {pub_launches['exec']}; on the device a decode: "
+          + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in dev16.items())
+          + f"; K7 serial {_fmt_ms(k7_round)} a round, "
+          + ("not measured" if dev16["K7"] is None else
+             f"{dev16['K7'] * 1e6 / max(nseq16, 1):.1f} ns a sequence")
+          + f" ({nseq16} sequences)")
+    hold_captured(pub_captured, "phase 4e long-window decode")
+    del pub_captured, parsed16
+
+    gi_z = [(s_, f_) for s_, f_ in zip(torch_cases.multiblock_specs(),
+                                       torch_cases.multiblock_frames()) if s_["by"] == "zstd"]
+    b_frames = [*bm3[0], *(f_ for _, f_ in gi_z), frame16]
+    b_items = [*bm3[1], *(s_["payload"] for s_, _ in gi_z), data]
+    bmgr = BatchManager(level=3)
+    t0 = time.perf_counter()
+    res_b, b_launches, _ = record([], lambda: bmgr.decompress_batch(b_frames, use_tpu=True), True)
+    t_b = time.perf_counter() - t0
+    bad = [k for k, (r, d) in enumerate(zip(res_b, b_items))
+           if r.status != Status.SUCCESS or r.output != d]
+    if bad or len(res_b) != len(b_items):
+        _fail(f"phase 4e: decompress_batch(use_tpu=True) returned {len(bad)} wrong items "
+              f"(first {bad[:8]})")
+    if b_launches["decode_seq"] <= 0 or b_launches["exec"] <= 0:
+        _fail(f"phase 4e: decompress_batch(use_tpu=True) launched {b_launches}: it fell "
+              f"through to the host")
+    print(f"phase 4e: BatchManager(level=3).decompress_batch(use_tpu=True) over {len(b_frames)} "
+          f"frames ({len(bm3[0])} BatchManager, {len(gi_z)} libzstd, the 16 MiB one): every "
+          f"status SUCCESS, every output == its input; K7 / K8 launches "
+          f"{b_launches['decode_seq']} / {b_launches['exec']}; {t_b:.2f} s")
+
+    import tpu_zstd_torch
+
+    small256 = make_corpus(256 * 1024)
+    t0 = time.perf_counter()
+    hframe, h_launches, _ = record([], lambda: tpu_zstd_torch.compress(small256, checksum=True),
+                                   True)
+    t_hc = time.perf_counter() - t0
+    if any(h_launches.values()):
+        _fail(f"phase 4e: tpu_zstd_torch.compress of 256 KB launched {h_launches}")
+    decodes(hframe, small256, "the host codec's 256 KB frame")
+    t0 = time.perf_counter()
+    back = tpu_zstd_torch.decompress(hframe)
+    t_hd = time.perf_counter() - t0
+    on_card, hd_launches, _ = record([], lambda: decompress.decompress_batch_tpu([hframe]), True)
+    if back != small256 or on_card != [small256]:
+        _fail("phase 4e: the host codec's frame does not round-trip")
+    if hd_launches["decode_seq"] <= 0 or hd_launches["exec"] <= 0:
+        _fail(f"phase 4e: decompress_batch_tpu of the host frame launched {hd_launches}")
+    print(f"phase 4e: tpu_zstd_torch.compress(256 KB, checksum=True) took the host route (no "
+          f"launch): {len(hframe)} bytes in {t_hc:.2f} s ({len(small256) / t_hc / 1e6:.3f} MB/s); "
+          f"tpu_zstd_torch.decompress on the host {t_hd:.2f} s "
+          f"({len(small256) / t_hd / 1e6:.3f} MB/s); decompress_batch_tpu on the card (checksum "
+          f"verified) == the input")
+    sd = StreamingDecompressor()
+    stream = slice_frame + default_frame
+    t0 = time.perf_counter()
+    got = b"".join(sd.decompress_chunk(stream[p : p + 4096])
+                   for p in range(0, len(stream), 4096)) + sd.flush()
+    t_sd = time.perf_counter() - t0
+    if got != small + small or sd.frames_completed != 2:
+        _fail("phase 4e: StreamingDecompressor did not return the 4-block frames' inputs")
+    print(f"phase 4e: StreamingDecompressor fed phase 3's and phase 4's 4-block frames in 4 KB "
+          f"chunks == their inputs ({len(got)} bytes, checksum verified incrementally, "
+          f"{t_sd:.2f} s = {len(got) / t_sd / 1e6:.3f} MB/s on the host)")
+    print(f"phase 4e: done ({time.perf_counter() - t4e:.1f} s)")
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -1603,6 +1785,10 @@ def main() -> int:
                     "opt": launches19["opt"], "match": fused_launches, "sort": 0,
                     "deposit": 0}
     extra = {
+        **{k: {"launches_long_window_decode": pub_launches[k],
+               "launches_batch_decompress": b_launches[k],
+               "long_window_decode_device_ms": dev16["K7" if k == "decode_seq" else "K8"]}
+           for k in ("decode_seq", "exec")},
         "match": {"level": 3, "launches_per_call": 1,
                   "plain_route_ms": fused_t[3]["plain_route_ms"],
                   "fused_route_ms": fused_t[3]["fused_ms"],

@@ -10,7 +10,8 @@ widths 1024, 8192, 16384 and 65536, K3 and K5 also on their hard inputs
 (greedy_hard_packed, chain_hard_inputs, chain_garbage_inputs), K2 also
 through its fused entry on the hard operands of concat_fused_hard, the
 multi-block decode plan on the golden multi-block frames
-(decompress_multiblock), K10 also on
+(decompress_multiblock), `decompress_batch_tpu` on its seeded batch
+against the CPU's, K10 also on
 the calls of opt_card_calls (its hard calls, OPT_HARD and OPT_HARD_WIDE:
 every row kind at 16397 x 1024, seg 1, 33, 1000 and 4096, cap 127 at mm
 32, mm = cap; OPT_FAST_WIDE, every row of which must take the fast path;
@@ -30,8 +31,8 @@ import torch_cases
 from tpu_zstd_torch.api import config, decompress, manager
 from tpu_zstd_torch.corpus import make_corpus
 from tpu_zstd_torch.ops import (
-    chain, concat, decode, decode_lanes, deposit, greedy, lz77, match, opt, pipeline, rep, roll,
-    sort,
+    _kernels, chain, concat, decode, decode_lanes, deposit, greedy, lz77, match, opt, pipeline,
+    rep, roll, sort,
 )
 from tpu_zstd_torch.ops import exec as execmod
 
@@ -256,3 +257,13 @@ def _check_decode_kernels(dev):
         assert int(lens[k]) == len(p) and out[k, : len(p)].cpu().numpy().tobytes() == p, k
     with pytest.raises(ValueError):
         decompress.prepare_decompress_batch(inp["wide"], torch_cases.MB_N)
+    # decompress_batch_tpu on the card, equal to the CPU's (the seeded batch
+    # of tests/torch_cases.py: carried repeat offsets, an 8 MiB window without
+    # a content size, skippable frames, a checksum), K7 and K8 launched.
+    inp = torch_cases.decompress_batch_tpu_inputs()()
+    _kernels.reset_launches()
+    got = decompress.decompress_batch_tpu(inp["frames"], torch_cases.DBT_N, device=dev)
+    torch.cuda.synchronize()
+    assert _kernels.launches["decode_seq"] > 0 and _kernels.launches["exec"] > 0
+    assert got == decompress.decompress_batch_tpu(inp["frames"], torch_cases.DBT_N, device="cpu")
+    assert got == inp["payloads"]

@@ -21,7 +21,14 @@ level 7/12/19/22 item frames at 16 KB blocks) and the fifth (the plain
 versions of the row sort K12, the fused match finder K13 (both also on
 their hard sets) and the bit deposit K11, and `find_matches` with
 `use_pallas_match`, both as the JAX
-package runs it on the CPU and through the fused route); stock libzstd
+package runs it on the CPU and through the fused route) and the public
+surface (the host codec's frames and its decoder on the JAX package's, the
+port's and libzstd's frames and on corrupt ones, `decompress_batch_tpu` on a
+batch with repeat offsets carried across blocks, an 8 MiB window without a
+content size, skippable frames and a checksum, the streaming decoder fed in
+1-, 7- and 4096-byte chunks, `Manager` on both routes, the top-level
+functions, `BatchManager.decompress_batch` with a corrupt item, the size
+estimates and validators, streaming XXH64 and XXH32); stock libzstd
 (`zstandard`) decodes every port frame.
 
 This file imports neither JAX nor the JAX package and compiles nothing; it
@@ -31,7 +38,7 @@ beside the nine-item reference files, after every reference file with more
 items, and the reference files keep the order and the workers they have
 without it. The live comparisons against the JAX package
 (tests/test_torch_{kernels,parse,fse,pipeline,fse_custom,huffman,
-manager,accel,decode,optimal}.py) also hold the recorded digests against the JAX
+manager,accel,decode,optimal,api}.py) also hold the recorded digests against the JAX
 package's live output.
 """
 
@@ -73,10 +80,11 @@ TOPICS = {
     "default_frames": ["frame_default_8k", "frame_default_16k", "frame_default_16k_checksum",
                        "accel_records", "accel_items_16k", "accel_items_16k_checksum",
                        "decompress_batch_accel", "decompress_batch_plain",
-                       "decompress_batch_zstd", "decompress_multiblock"],
+                       "decompress_batch_zstd", "decompress_multiblock", "host_decode",
+                       "decompress_batch_tpu", "streaming_decode"],
     "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64",
                      "items_level7", "items_level12", "items_level19", "items_level22",
-                     "frame_whole_block"],
+                     "frame_whole_block", "host_compress", "manager_surface"],
 }
 
 

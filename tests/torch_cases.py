@@ -3010,3 +3010,379 @@ def _fused_ref(i):
 
 
 case("find_matches_fused", "parse", _fused_inputs, _fused_port, _fused_ref)
+
+
+# --- The public surface: host codec, decompress_batch_tpu, streaming, managers ------
+# Group "api" (tests/test_torch_api.py re-checks it against the JAX package).
+# Errors are compared as "ExceptionClass: message" bytes; decoded outputs as
+# uint8 arrays (byte-string outputs are frames, which the golden test decodes
+# with libzstd).
+
+
+def _u8(b: bytes) -> np.ndarray:
+    return np.frombuffer(bytes(b), np.uint8)
+
+
+def _err(fn) -> np.ndarray:
+    """What fn() raises, as "ExceptionClass: message" bytes; empty when it
+    returns."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class is part of the digest
+        return _u8(f"{type(e).__name__}: {e}".encode())
+    return _u8(b"")
+
+
+def _skippable(payload: bytes) -> bytes:
+    return (0x184D2A50).to_bytes(4, "little") + len(payload).to_bytes(4, "little") + payload
+
+
+def rehead_wide(frame: bytes, window_log: int = 23) -> bytes:
+    """A frame with its header rewritten to declare a 2^window_log window
+    and no content size (its checksum flag kept, no dictionary ID): the
+    blocks are unchanged, so the frame stays valid."""
+    fhd = frame[4]
+    single, did, fcs = (fhd >> 5) & 1, fhd & 3, fhd >> 6
+    size = 5 + (0 if single else 1) + (0, 1, 2, 4)[did] + ((1 if single else 0), 2, 4, 8)[fcs]
+    return frame[:4] + bytes([fhd & 4, (window_log - 10) << 3]) + frame[size:]
+
+
+def _flip_last(frame: bytes) -> bytes:
+    return frame[:-1] + bytes([frame[-1] ^ 0x5A])
+
+
+def _reserved_first_block(frame: bytes, header_size: int) -> bytes:
+    """The frame with its first block's type set to 3 (reserved)."""
+    bh = int.from_bytes(frame[header_size : header_size + 3], "little") | (3 << 1)
+    return frame[:header_size] + bh.to_bytes(3, "little") + frame[header_size + 3 :]
+
+
+# The host codec's parameters: the first two are what Manager._compress_cpu
+# builds at levels 1 and 3; then lazy at hash_log 12 with 8 KB blocks,
+# min_match 3 with 16 KB blocks and a checksum, no Huffman, and a window_log.
+HOST_PARAMS = (
+    dict(level=1, hash_log=15, search_depth=3, min_match=4, lazy=False),
+    dict(level=3, hash_log=16, search_depth=8, min_match=4, lazy=True),
+    dict(hash_log=12, search_depth=4, lazy=True, block_size=8192),
+    dict(hash_log=16, min_match=3, block_size=16384, checksum=True),
+    dict(min_match=4, enable_huffman=False, block_size=8192),
+    dict(hash_log=14, search_depth=2, window_log=20, checksum=True, block_size=16384),
+)
+
+
+def _host_compress_inputs():
+    data = _mix(43, 24000)
+    return {"items": [data] * len(HOST_PARAMS), "params": HOST_PARAMS}
+
+
+def _host_compress_run(frame_mod, i):
+    return {f"frame{k}": frame_mod.compress(d, frame_mod.CompressParams(**p))
+            for k, (d, p) in enumerate(zip(i["items"], i["params"]))}
+
+
+def _host_compress_port(i):
+    from tpu_zstd_torch.format import frame
+
+    return _host_compress_run(frame, i)
+
+
+def _host_compress_ref(i):
+    from tpu_zstd.format import frame
+
+    return _host_compress_run(frame, i)
+
+
+case("host_compress", "api", _host_compress_inputs, _host_compress_port, _host_compress_ref)
+
+
+def _host_decode_inputs():
+    """Frames of the JAX package (recorded multi-block frames at levels 3
+    and 19, one with its decode-acceleration tail), of the port (its host
+    codec with a checksum, and compress_items' frames without metadata) and
+    of libzstd (levels 1-19, and the recorded multi-block frames), one
+    stream of back-to-back frames with skippable ones, and four corrupt
+    frames."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        from tpu_zstd_torch.format import frame
+
+        mb = multiblock_frames()
+        data = _mix(42, 20000)
+        host = frame.compress(data, frame.CompressParams(block_size=8192, checksum=True))
+        plain, zstd = _DEC_FRAMES["plain"](), _DEC_FRAMES["zstd"]()
+        frames = [mb[0], *mb[3:], host, *plain["frames"], *zstd["frames"]]
+        stream = _skippable(b"abc") + mb[1] + _skippable(b"") + plain["frames"][0] + mb[6]
+        hs = frame.parse_frame_header(mb[0]).header_size
+        corrupt = [mb[0][: len(mb[0]) // 2], b"\x28\xb5\x2f\xfe" + mb[0][4:],
+                   _reserved_first_block(mb[0], hs), _flip_last(host)]
+        return {"frames": frames, "stream": stream, "corrupt": corrupt}
+
+    return make
+
+
+def _host_decode_run(decompress, i):
+    return {**{f"out{k}": _u8(decompress(f)) for k, f in enumerate(i["frames"])},
+            "stream": _u8(decompress(i["stream"])),
+            **{f"err{k}": _err(lambda f=f: decompress(f)) for k, f in enumerate(i["corrupt"])}}
+
+
+def _host_decode_port(i):
+    from tpu_zstd_torch.format import frame
+
+    return _host_decode_run(frame.decompress, i)
+
+
+def _host_decode_ref(i):
+    from tpu_zstd.format import frame
+
+    return _host_decode_run(frame.decompress, i)
+
+
+case("host_decode", "api", _host_decode_inputs(), _host_decode_port, _host_decode_ref)
+
+DBT_N = 16384  # decompress_batch_tpu cases: max_block
+
+
+def decompress_batch_tpu_inputs():
+    """One batch for `decompress_batch_tpu`, all of it made without libzstd:
+    the port's level-3 frames at 16 KB blocks (2 blocks behind a skippable
+    frame; 2 blocks with a checksum), libzstd's recorded level-19 frame of 4
+    blocks whose first sequences use repeat offsets of the block before, and
+    the same frame re-headed to declare an 8 MiB window and no content size
+    (the prepared plan refuses it); then a batch with a truncated frame."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        from tpu_zstd_torch.api import config, manager
+
+        mb, specs = multiblock_frames(), multiblock_specs()
+        cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=DBT_N)
+        noise = np.random.default_rng(47).integers(0, 256, 10000, dtype=np.uint8).tobytes()
+        pay = [noise + make_corpus(8000), b"\x42" * 9000 + make_corpus(9000)[::-1]]
+        port, = manager.compress_items(pay[:1], cfg, device="cpu")
+        port_ck, = manager.compress_items(pay[1:], dataclasses.replace(
+            cfg, checksum=config.ChecksumPolicy.COMPUTE), device="cpu")
+        frames = [_skippable(b"xyz") + port, port_ck, mb[5], rehead_wide(mb[5])]
+        payloads = [*pay, specs[5]["payload"], specs[5]["payload"]]
+        return {"frames": frames, "payloads": payloads,
+                "corrupt": [frames[2], port_ck[: len(port_ck) // 2]]}
+
+    return make
+
+
+def _dbt_digest(outs, payloads, refused, err):
+    return {**{f"out{k}": _u8(o) for k, o in enumerate(outs)},
+            "equal_input": [o == p for o, p in zip(outs, payloads)],
+            "plan_refuses_wide": refused, "corrupt_err": err}
+
+
+def _dbt_port(i):
+    from tpu_zstd_torch.api import decompress
+
+    def run(frames):
+        return decompress.decompress_batch_tpu(frames, DBT_N, device="cpu")
+
+    return _dbt_digest(run(i["frames"]), i["payloads"], _mb_refused(
+        lambda f: decompress.prepare_decompress_batch(f, DBT_N, device="cpu"), i["frames"][3:4]),
+        _err(lambda: run(i["corrupt"])))
+
+
+def _dbt_ref(i):
+    from tpu_zstd.api import decompress
+
+    def run(frames):
+        return decompress.decompress_batch_tpu(frames, DBT_N)
+
+    return _dbt_digest(run(i["frames"]), i["payloads"], _mb_refused(
+        lambda f: decompress.prepare_decompress_batch(f, DBT_N), i["frames"][3:4]),
+        _err(lambda: run(i["corrupt"])))
+
+
+case("decompress_batch_tpu", "api", decompress_batch_tpu_inputs(), _dbt_port, _dbt_ref)
+
+STREAM_CHUNKS = (1, 7, 4096)
+
+
+def _streaming_inputs():
+    """Back-to-back frames with skippable ones (the port's host frame with a
+    checksum at 4 KB blocks, libzstd's level-19 multi-block frame, the JAX
+    package's 4-block checksummed frame), the same host frame with a bad
+    checksum, and a stream cut mid-frame."""
+    from tpu_zstd_torch.format import frame
+
+    mb = multiblock_frames()
+    host = frame.compress(_mix(45, 12000), frame.CompressParams(block_size=4096, checksum=True))
+    stream = _skippable(b"abc") + host + mb[5] + _skippable(b"") + mb[0]
+    return {"stream": stream, "bad": _flip_last(host), "cut": mb[0][: len(mb[0]) // 2]}
+
+
+def _streaming_run(make, i):
+    out = {}
+    for n in STREAM_CHUNKS:
+        dec = make()
+        s = i["stream"]
+        got = b"".join(dec.decompress_chunk(s[p : p + n]) for p in range(0, len(s), n))
+        out[f"out_chunks{n}"] = _u8(got + dec.flush())
+        out[f"frames_completed_chunks{n}"] = [dec.frames_completed, int(dec.at_frame_boundary)]
+
+    def bad():
+        dec = make()
+        for p in range(0, len(i["bad"]), 4096):
+            dec.decompress_chunk(i["bad"][p : p + 4096])
+
+    def cut():
+        dec = make()
+        dec.decompress_chunk(i["cut"])
+        dec.flush()
+
+    return {**out, "bad_checksum": _err(bad), "flush_mid_frame": _err(cut)}
+
+
+def _streaming_port(i):
+    from tpu_zstd_torch.api import manager
+
+    return _streaming_run(manager.StreamingDecompressor, i)
+
+
+def _streaming_ref(i):
+    from tpu_zstd.api import manager
+
+    return _streaming_run(manager.StreamingDecompressor, i)
+
+
+case("streaming_decode", "api", _streaming_inputs, _streaming_port, _streaming_ref)
+
+MANAGER_THRESHOLD = 8192  # cpu_threshold lowered so that both routes run at test sizes
+
+
+def _manager_inputs():
+    """A 6 KB input (the host route) and a 12 KB one (the device route, 16
+    KB blocks) through Manager with cpu_threshold lowered; items for
+    BatchManager at 16 KB blocks and for the top-level decoders, with a
+    truncated frame among them; frames with and without content size,
+    corrupt ones and garbage for the validators; data for XXH64State (in
+    uneven updates) and xxh32."""
+    from tpu_zstd_torch.format import frame
+
+    rng = np.random.default_rng(46)
+    small, big = _mix(46, 6000), _mix(48, 12000)
+    good = frame.compress(small, frame.CompressParams(checksum=True, block_size=4096))
+    mb = multiblock_frames()
+    return {"small": small, "big": big, "good": good, "bad": [good[:-20], good[:7]],
+            "no_size": rehead_wide(mb[6]), "flipped": _flip_last(good),
+            "garbage": rng.integers(0, 256, 64, dtype=np.uint8).tobytes(),
+            "batch_items": [small, b"", b"\x07" * 3000],
+            "xxh": [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                    for n in (0, 5, 15, 16, 17, 31, 32, 33, 100, 1000)]}
+
+
+def _xxh_surface(xxhash, datas):
+    state_ok, digests = [], []
+    for d in datas:
+        st = xxhash.XXH64State()
+        for p, q in ((0, 3), (3, 40), (40, len(d))):
+            st.update(d[p:q])
+        state_ok.append(st.digest() == xxhash.xxh64(d))
+        digests.append(st.digest() & 0xFFFFFFFF)
+    return {"xxh64_state_equal": state_ok, "xxh64_state_lo": digests,
+            "xxh32": [xxhash.xxh32(d) for d in datas],
+            "xxh32_seed": [xxhash.xxh32(d, 0x9E3779B1) for d in datas]}
+
+
+def _stats_row(st) -> list:
+    return [st.total_input_bytes, st.total_output_bytes, st.total_frames, st.total_blocks,
+            st.total_compress_calls, st.total_decompress_calls]
+
+
+def _manager_port(i):
+    import tpu_zstd_torch as tz
+    from tpu_zstd_torch.api import config, manager
+    from tpu_zstd_torch.format import xxhash
+
+    cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
+                              cpu_threshold=MANAGER_THRESHOLD)
+    m = manager.Manager(config=cfg, device="cpu")
+    m_dev = manager.Manager(config=cfg, execution_path=config.ExecutionPath.TPU_BATCH,
+                            device="cpu")
+    paths = [int(m.select_execution_path(n)) for n in (0, MANAGER_THRESHOLD - 1,
+                                                       MANAGER_THRESHOLD, 1 << 30)]
+    host_frame, dev_frame = m.compress(i["small"]), m.compress(i["big"])
+    dec = [m.decompress(host_frame), m.decompress(dev_frame), m_dev.decompress(dev_frame),
+           m_dev.decompress(host_frame)]
+    top = tz.compress(i["small"], level=1, checksum=True, device="cpu")
+    items = i["batch_items"]
+    bm = manager.BatchManager(config=cfg, device="cpu")
+    bframes = [it.output for it in bm.compress_batch(items)]
+    bitems = [bframes[0], i["bad"][0], bframes[2]]
+    return _manager_digest(
+        paths, host_frame, dev_frame, dec, _stats_row(m.stats), top,
+        tz.decompress(top, device="cpu"), bframes, tz.decompress_batch(bitems, device="cpu"),
+        [[int(it.status) for it in bm.decompress_batch(bitems, use_tpu=u)] for u in (True, False)],
+        [[o == d for o, d in zip((it.output for it in bm.decompress_batch(bframes, use_tpu=u)),
+                                 items)] for u in (True, False)],
+        [tz.validate_compressed_data(f) for f in (i["good"], *i["bad"], i["flipped"],
+                                                  i["garbage"])],
+        [tz.get_decompressed_size(f) for f in (i["good"], i["no_size"], i["garbage"])],
+        [tz.estimate_compressed_size(n) for n in (0, 1, 131072, 131073, 10**6)],
+        _xxh_surface(xxhash, i["xxh"]))
+
+
+def _manager_digest(paths, host_frame, dev_frame, dec, stats, top, top_dec, bframes, bdec,
+                    statuses, batch_equal, valid, sizes, estimates, xxh):
+    return {"paths": paths, "host_frame": _u8(host_frame), "dev_frame": _u8(dev_frame),
+            **{f"dec{k}": _u8(d) for k, d in enumerate(dec)}, "stats": stats,
+            "top_frame": _u8(top), "top_dec": _u8(top_dec),
+            **{f"batch_frame{k}": _u8(f) for k, f in enumerate(bframes)},
+            **{f"batch_dec{k}": _u8(d) if d is not None else [-1] for k, d in enumerate(bdec)},
+            "batch_statuses": statuses, "batch_equal": batch_equal, "valid": valid,
+            "sizes": [-1 if s is None else s for s in sizes], "estimates": estimates, **xxh}
+
+
+def _manager_ref(i):
+    """The reference's Manager, except where it reaches its native C++
+    engine: the host route is its format/frame.py `compress` with the
+    parameters Manager._compress_cpu builds, and the stats are summed from
+    the outputs as Manager counts them."""
+    import tpu_zstd as tj
+    from tpu_zstd.api import config, decompress, manager
+    from tpu_zstd.format import frame, xxhash
+
+    cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
+                              cpu_threshold=MANAGER_THRESHOLD)
+
+    def host(data, c):
+        return frame.compress(data, frame.CompressParams(
+            level=c.level, hash_log=min(c.hash_log, 16), search_depth=c.search_depth,
+            min_match=c.min_match, lazy=c.strategy >= 4, block_size=c.block_size,
+            checksum=c.checksum != config.ChecksumPolicy.NONE))
+
+    m = manager.Manager(config=cfg)
+    paths = [int(m.select_execution_path(n)) for n in (0, MANAGER_THRESHOLD - 1,
+                                                       MANAGER_THRESHOLD, 1 << 30)]
+    host_frame = host(i["small"], cfg)
+    dev_frame, = manager.compress_items_tpu([i["big"]], cfg)
+    dec = [frame.decompress(host_frame, verify_checksum=False),
+           frame.decompress(dev_frame, verify_checksum=False),
+           *decompress.decompress_batch_tpu([dev_frame, host_frame], verify_checksum=False)]
+    stats = [len(i["small"]) + len(i["big"]), len(host_frame) + len(dev_frame), 2,
+             sum(max(1, -(-len(d) // cfg.block_size)) for d in (i["small"], i["big"])), 2, 2]
+    c1 = dataclasses.replace(config.CompressionConfig.from_level(1),
+                             checksum=config.ChecksumPolicy.COMPUTE)
+    top = host(i["small"], c1)
+    items = i["batch_items"]
+    bm = manager.BatchManager(config=cfg)
+    bframes = [it.output for it in bm.compress_batch(items)]
+    bitems = [bframes[0], i["bad"][0], bframes[2]]
+    return _manager_digest(
+        paths, host_frame, dev_frame, dec, stats, top, tj.decompress(top), bframes,
+        tj.decompress_batch(bitems),
+        [[int(it.status) for it in bm.decompress_batch(bitems, use_tpu=u)] for u in (True, False)],
+        [[o == d for o, d in zip((it.output for it in bm.decompress_batch(bframes, use_tpu=u)),
+                                 items)] for u in (True, False)],
+        [tj.validate_compressed_data(f) for f in (i["good"], *i["bad"], i["flipped"],
+                                                  i["garbage"])],
+        [tj.get_decompressed_size(f) for f in (i["good"], i["no_size"], i["garbage"])],
+        [config.estimate_compressed_size(n) for n in (0, 1, 131072, 131073, 10**6)],
+        _xxh_surface(xxhash, i["xxh"]))
+
+
+case("manager_surface", "api", _manager_inputs, _manager_port, _manager_ref)

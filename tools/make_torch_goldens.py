@@ -32,13 +32,18 @@ before anything is written. Targets (default: slice2 cases):
   of tests/torch_cases.py `multiblock_specs` (the JAX package's
   `compress_items_tpu` at 8 KB blocks, and stock libzstd with blocks ended by
   flushes), inputs of the case `decompress_multiblock`; make it before
-  `cases` when the specs change.
+  `cases` when the specs change;
+- slice5 -> tests/golden/torch_slice5.json, the public surface's long-window
+  frame: the bench batch make_corpus(128 * 131072) as ONE item through
+  `compress_items_tpu` at level 3 (a frame of 128 blocks whose header
+  declares a 16 MiB window), its length and sha256 and the header's window
+  and content sizes.
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4]
-        [multiblock] [cases]
+        [slice5] [multiblock] [cases]
 
-About 4 minutes for slice1, 7 for slice2 and slice3, 13 for slice4 (on 8
-cores) and 10 for cases on the CPU. Give slice1-slice4 a fresh process (or
+About 4 minutes for slice1, 7 for slice2, slice3 and slice5, 13 for slice4
+(on 8 cores) and 10 for cases on the CPU. Give slice1-slice5 a fresh process (or
 list it first): after the ~40 case compiles, XLA:CPU's compile of the
 full-width batch failed for lack of memory mappings in the same process.
 For the same reason `cases` runs each group of cases in a process of its
@@ -73,7 +78,7 @@ from bench import make_corpus  # noqa: E402
 from tpu_zstd.api.config import ChecksumPolicy, CompressionConfig  # noqa: E402
 from tpu_zstd.api.manager import compress_items_tpu  # noqa: E402
 from tpu_zstd.constants import BLOCK_RLE  # noqa: E402
-from tpu_zstd.format.frame import write_frame_header  # noqa: E402
+from tpu_zstd.format.frame import parse_frame_header, write_frame_header  # noqa: E402
 from tpu_zstd.ops.pipeline import (  # noqa: E402
     DEFAULT_CONFIG,
     PipelineConfig,
@@ -273,6 +278,26 @@ def slice4() -> None:
     _write("torch_slice4.json", doc)
 
 
+def slice5() -> None:
+    N = DEFAULT_CONFIG.block_size
+    data = make_corpus(BATCH_BLOCKS * N)
+    ccfg = CompressionConfig.from_level(3)
+    frame, = compress_items_tpu([data], ccfg)
+    _decodes(frame, data, "the 16 MiB level-3 item frame")
+    hdr = parse_frame_header(frame)
+    doc = {
+        "config": {k: int(v) if isinstance(v, enum.Enum) else v
+                   for k, v in dataclasses.asdict(ccfg).items()},
+        "corpus": f"make_corpus({BATCH_BLOCKS} * {N}), one item",
+        "size": len(data),
+        "window_size": hdr.window_size,
+        "content_size": hdr.content_size,
+        "len": len(frame),
+        "sha256": _sha(frame),
+    }
+    _write("torch_slice5.json", doc)
+
+
 def _cases_group(group: str) -> None:
     """Print the JSON digests of one group's cases as the last stdout line."""
     import torch_cases
@@ -328,7 +353,7 @@ def multiblock() -> None:
 
 
 TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "slice4": slice4,
-           "multiblock": multiblock, "cases": cases}
+           "slice5": slice5, "multiblock": multiblock, "cases": cases}
 
 
 def main(argv: list[str]) -> None:

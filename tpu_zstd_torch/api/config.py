@@ -1,9 +1,10 @@
 """Status codes, strategies and the user-facing compression configuration.
 
-The port's copy of `Status`, `Strategy`, `ChecksumPolicy`,
-`CompressionConfig` (with `from_level`) and `CompressionStats` from
-tpu_zstd/api/config.py: the level table is the reference's, so a level maps
-to the same pipeline parameters and the same frames.
+The port's copy of `Status`, `Strategy`, `ExecutionPath`, `ChecksumPolicy`,
+`CompressionConfig` (with `from_level`), `CompressionStats` and
+`estimate_compressed_size` from tpu_zstd/api/config.py: the level table is
+the reference's, so a level maps to the same pipeline parameters and the
+same frames.
 """
 
 from __future__ import annotations
@@ -58,6 +59,17 @@ class Strategy(enum.IntEnum):
     BTLAZY2 = 6
     BTOPT = 7
     BTULTRA = 8
+
+
+class ExecutionPath(enum.IntEnum):
+    """Routing decision of `Manager`: the host codec (CPU) or the card.
+    TPU_BATCH and TPU_CHUNK keep the reference's names; in the port both
+    mean the CUDA device."""
+
+    AUTO = 0
+    CPU = 1
+    TPU_BATCH = 2
+    TPU_CHUNK = 3
 
 
 class ChecksumPolicy(enum.IntEnum):
@@ -173,3 +185,11 @@ class CompressionStats:
     def reset(self) -> None:
         for f in self.__dataclass_fields__:
             setattr(self, f, 0 if isinstance(getattr(self, f), int) else 0.0)
+
+
+def estimate_compressed_size(input_size: int) -> int:
+    """Worst-case frame size: the input, 3 header bytes a 128 KB block (a
+    block that does not shrink is stored Raw), the frame header and the
+    checksum."""
+    nblocks = max(1, -(-input_size // (128 * 1024)))
+    return input_size + 3 * nblocks + 18 + 4

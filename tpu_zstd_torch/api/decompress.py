@@ -1,9 +1,8 @@
-"""Batched decompression of single-block frames: host framing -> device
-decode kernels.
+"""Batched decompression: host framing -> device decode kernels.
 
-Counterpart of the single-block path of tpu_zstd/api/decompress.py
-(`prepare_decompress_batch` -> `DecompressPlan.execute`,
-`decompress_batch_to_device`). Section headers and entropy tables are
+Counterpart of tpu_zstd/api/decompress.py (`prepare_decompress_batch` ->
+`DecompressPlan.execute`, `decompress_batch_to_device`,
+`decompress_batch_tpu`). Section headers and entropy tables are
 parsed and built on the host (they are small); the sequence decode, the
 4-stream Huffman literal decode and the sequence execution run on the
 device, uploaded once at prepare time so `execute()` does device work only:
@@ -29,10 +28,19 @@ the reference does) and uploaded as rounds, block k of every frame in round
 k; `execute()` decodes round after round on the device, K7 serially with
 the repeat offsets carried from the round before, K8 against the history
 window carried from the rounds before, then joins the rounds into one row
-per frame.
+per frame. The plan keeps at most 4 MiB of history (PLAN_WINDOW_CAP) and
+refuses frames whose window is wider.
+
+`decompress_batch_tpu` decodes frames of any window up to 1 GiB with the same
+round parser and the same device loop (`_parse_rounds`, `_stage_round`,
+`_decode_rounds`), staging each round only when its turn comes and fetching
+finished rounds to the host a few rounds behind, so the device never holds
+the whole batch; it returns the frames' bytes.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -463,13 +471,17 @@ def prepare_decompress_batch(frames: list[bytes], max_block: int = 128 * 1024,
 
 def _carry_window(win_prev: torch.Tensor, out: torch.Tensor, olen: torch.Tensor, Wn: int):
     """The history before the next round: per row the right-aligned last Wn
-    bytes of concat(win_prev, out[:, :olen]) (reference `_carry_window`, a
-    gather there too)."""
-    Wp, M = win_prev.shape[1], out.shape[1]
-    idx = torch.arange(Wn, device=out.device) - Wn + olen.to(torch.int64)[:, None]
-    out_g = out.gather(1, torch.clamp(idx, 0, M - 1))
-    win_g = win_prev.gather(1, torch.clamp(idx + Wp, 0, Wp - 1))
-    return torch.where(idx >= 0, out_g, win_g)
+    bytes of concat(win_prev, out[:, :olen]), the bytes before the history's
+    start repeating its first one (reference `_carry_window`, a gather there
+    too). The gather takes a few rows at a time, so its int64 index stays
+    under 128 MiB at windows up to 1 GiB."""
+    Wp, B = win_prev.shape[1], out.shape[0]
+    cat = torch.cat([win_prev, out], 1)
+    start = olen.to(torch.int64)[:, None] + (Wp - Wn)  # each row's first byte in cat
+    col = torch.arange(Wn, device=out.device)
+    step = max(1, (1 << 24) // Wn)
+    return torch.cat([cat[r : r + step].gather(1, (start[r : r + step] + col).clamp_(min=0))
+                      for r in range(0, B, step)])
 
 
 def _assemble_rounds(outs: torch.Tensor, lens: torch.Tensor, MO: int):
@@ -490,18 +502,13 @@ def _assemble_rounds(outs: torch.Tensor, lens: torch.Tensor, MO: int):
     return torch.where(j < total[:, None], out, 0).to(torch.uint8), total.to(torch.int32)
 
 
-def _prepare_multiblock_plan(frames: list[bytes], max_block: int, dev) -> DecompressPlan:
-    """Prepared plan for a batch with multi-block frames (reference
-    `_prepare_multiblock_plan`): every block of every frame is parsed and
-    uploaded at prepare time, block k of each frame in round k (Repeat-mode
-    sequence tables and the treeless Huffman table carried across a frame's
-    blocks); `execute()` chains the rounds on the device with the repeat
-    offsets and the history window carried from round to round, then joins
-    them into (B, MO) rows. Decode-acceleration tails are stripped (their
-    checkpoints are unused) and leading skippable frames skipped. Raises
-    ValueError for a frame whose window (bounded by its content size)
-    exceeds PLAN_WINDOW_CAP."""
-    nf = len(frames)
+# --- Multi-block frames: rounds of blocks, parsed on the host, decoded in turn --------
+
+
+def _parse_headers(frames: list[bytes]):
+    """Each frame with its leading skippable frames and its trailing
+    decode-acceleration tail stripped (the round decoders use no
+    checkpoints), its header, and a cursor at its first block header."""
     stripped, hdrs, cursors = [], [], []
     for f in frames:
         f = f[_skip_skippable(f):]
@@ -512,17 +519,19 @@ def _prepare_multiblock_plan(frames: list[bytes], max_block: int, dev) -> Decomp
         stripped.append(f)
         hdrs.append(hdr)
         cursors.append(hdr.header_size)
-    frames = stripped
-    # Past the cap the plan no longer holds history the frame may reference.
-    for i, h in enumerate(hdrs):
-        need = h.window_size or h.content_size or 0
-        if h.content_size is not None:
-            need = min(need, h.content_size)
-        if need > PLAN_WINDOW_CAP:
-            raise ValueError(f"frame {i}: window size {need} exceeds the prepared-plan cap "
-                             f"({PLAN_WINDOW_CAP}); the port has no long-window decoder yet")
-    window_cap = max(4096, -(-min(max(h.window_size or h.content_size or (1 << 22)
-                                      for h in hdrs), PLAN_WINDOW_CAP) // 4096) * 4096)
+    return stripped, hdrs, cursors
+
+
+def _parse_rounds(frames: list[bytes], cursors: list[int], max_block: int) -> list[dict]:
+    """Every block of every frame parsed on the host, block k of each frame
+    in round k: per round {frame: _BlockPlan, or the bytes of a Raw / RLE
+    block}. Repeat-mode sequence tables and the treeless Huffman table carry
+    across a frame's blocks; section parsing depends only on the compressed
+    bytes, so the device loop needs no host round trip between rounds.
+    Leaves each cursor at its frame's end (the checksum). Raises ValueError
+    for a truncated frame, a reserved block type, a corrupt section, and a
+    block of more than max_block bytes or MAX_SEQS_DEC sequences."""
+    nf = len(frames)
     done = [False] * nf
     seq_tables: list = [None] * nf
     huf_tables: list = [None] * nf
@@ -560,76 +569,209 @@ def _prepare_multiblock_plan(frames: list[bytes], max_block: int, dev) -> Decomp
             cursors[i] = pos
             done[i] = bool(last)
         rounds.append(entry)
+    return rounds
 
-    def t(a, dtype=torch.int32):
-        return _upload(a, dev, dtype)
 
+def _stored_checksums(frames: list[bytes], hdrs, cursors: list[int]) -> list:
+    """Per frame its stored checksum at its cursor, or None."""
+    return [int.from_bytes(f[c : c + 4], "little") if h.has_checksum and c + 4 <= len(f)
+            else None for f, h, c in zip(frames, hdrs, cursors)]
+
+
+def _stage_round(entry: dict, B: int, max_block: int, dev) -> dict:
+    """One round's inputs, B rows (frame i in row i), uploaded to dev: the
+    sequence streams and their tables (packed once, as K7 takes them), the
+    literals (a Raw / RLE block's bytes as literals without sequences)."""
+    plans_r = [p for p in entry.values() if isinstance(p, _BlockPlan)]
+    swidth = _bucket(max(max((len(p.stream) for p in plans_r), default=1), 64), lo=64)
+    streams = np.zeros((B, swidth), np.uint8)
+    tbits = np.zeros(B, np.int32)
+    sym = np.zeros((B, 3, TSIZE_MAX), np.int32)
+    nb = np.zeros((B, 3, TSIZE_MAX), np.int32)
+    ns = np.zeros((B, 3, TSIZE_MAX), np.int32)
+    logs = np.zeros((B, 3), np.int32)
+    nseq = np.zeros(B, np.int32)
+    lits = np.zeros((B, max_block), np.uint8)
+    nlit = np.zeros(B, np.int32)
+    for i, p in entry.items():
+        if isinstance(p, _BlockPlan):
+            streams[i, : len(p.stream)] = np.frombuffer(p.stream, np.uint8)
+            tbits[i] = p.total_bits
+            nseq[i] = p.nbseq
+            lits[i, : p.nlit] = np.frombuffer(p.lits, np.uint8)
+            nlit[i] = p.nlit
+            if p.tables is not None:
+                sym[i], nb[i], ns[i], logs[i] = p.tables
+        else:
+            lits[i, : len(p)] = np.frombuffer(p, np.uint8)
+            nlit[i] = len(p)
+    return {
+        "streams": _upload(streams, dev, torch.uint8), "tbits": _upload(tbits, dev),
+        "tables": pack_seq_tables(SeqTables(*(_upload(a, dev) for a in (sym, nb, ns, logs)))),
+        "nseq": _upload(nseq, dev), "lits": _upload(lits, dev, torch.uint8),
+        "nlit": _upload(nlit, dev), "any_seqs": any(p.nbseq > 0 for p in plans_r),
+    }
+
+
+def _decode_rounds(staged, nr: int, rep0: torch.Tensor, max_block: int, window_cap: int):
+    """Decode nr staged rounds in turn on rep0's device; yields each round's
+    (out (B, max_block) uint8, out_len (B,) int32). K7 runs serially (one
+    chunk a block) from the repeat offsets the round before left (rows
+    without sequences keep theirs), K8 against the history carried from the
+    rounds before, which grows by a block a round up to window_cap, in powers
+    of two from 4 KB, as the reference's executor sees it. `staged` may be
+    a lazy iterator: each round is staged only when its turn comes."""
+    B, dev = rep0.shape[0], rep0.device
+    none = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    rep = rep0
+    win = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
+    Wcur, have_ub = 1, 0
+    for r, st in enumerate(staged):
+        if st["any_seqs"]:
+            ll, ml, off, rep = decode_sequences_lanes(
+                st["streams"], st["tbits"], st["tables"], st["nseq"], rep, none, none,
+                none.reshape(B, 0, 3), MAX_SEQS_DEC, 1, MAX_SEQS_DEC, rep_fin=True)
+            out, out_len = execute_sequences(st["lits"], st["nlit"], ll, ml, off, st["nseq"],
+                                             win, max_block, Wcur)
+        else:
+            out, out_len = st["lits"], st["nlit"]
+        out_len = out_len.to(torch.int32)
+        yield out, out_len
+        if r + 1 < nr:
+            have_ub = min(window_cap, have_ub + max_block)
+            Wnext = _bucket(max(have_ub, 4096), lo=4096)
+            win = _carry_window(win, out, out_len, Wnext)
+            Wcur = Wnext
+
+
+def _rep_init(B: int, dev) -> torch.Tensor:
+    return _upload(np.tile(np.asarray(REPCODE_INIT, np.int32), (B, 1)), dev)
+
+
+def _prepare_multiblock_plan(frames: list[bytes], max_block: int, dev) -> DecompressPlan:
+    """Prepared plan for a batch with multi-block frames (reference
+    `_prepare_multiblock_plan`): every round parsed (`_parse_rounds`) and
+    uploaded (`_stage_round`) at prepare time; `execute()` decodes the rounds
+    in turn (`_decode_rounds`), then joins them into (B, MO) rows.
+    Decode-acceleration tails are stripped (their checkpoints are unused)
+    and leading skippable frames skipped. Raises ValueError for a frame
+    whose window (bounded by its content size) exceeds PLAN_WINDOW_CAP:
+    `decompress_batch_tpu` decodes those."""
+    nf = len(frames)
+    frames, hdrs, cursors = _parse_headers(frames)
+    # Past the cap the plan no longer holds history the frame may reference.
+    for i, h in enumerate(hdrs):
+        need = h.window_size or h.content_size or 0
+        if h.content_size is not None:
+            need = min(need, h.content_size)
+        if need > PLAN_WINDOW_CAP:
+            raise ValueError(f"frame {i}: window size {need} exceeds the prepared-plan cap "
+                             f"({PLAN_WINDOW_CAP}); decompress_batch_tpu decodes it")
+    window_cap = max(4096, -(-min(max(h.window_size or h.content_size or (1 << 22)
+                                      for h in hdrs), PLAN_WINDOW_CAP) // 4096) * 4096)
+    rounds = _parse_rounds(frames, cursors, max_block)
     B = _bucket(nf, lo=1)
-    staged = []
-    for entry in rounds:
-        plans_r = [p for p in entry.values() if isinstance(p, _BlockPlan)]
-        swidth = _bucket(max(max((len(p.stream) for p in plans_r), default=1), 64), lo=64)
-        streams = np.zeros((B, swidth), np.uint8)
-        tbits = np.zeros(B, np.int32)
-        sym = np.zeros((B, 3, TSIZE_MAX), np.int32)
-        nb = np.zeros((B, 3, TSIZE_MAX), np.int32)
-        ns = np.zeros((B, 3, TSIZE_MAX), np.int32)
-        logs = np.zeros((B, 3), np.int32)
-        nseq = np.zeros(B, np.int32)
-        lits = np.zeros((B, max_block), np.uint8)
-        nlit = np.zeros(B, np.int32)
-        for i, p in entry.items():
-            if isinstance(p, _BlockPlan):
-                streams[i, : len(p.stream)] = np.frombuffer(p.stream, np.uint8)
-                tbits[i] = p.total_bits
-                nseq[i] = p.nbseq
-                lits[i, : p.nlit] = np.frombuffer(p.lits, np.uint8)
-                nlit[i] = p.nlit
-                if p.tables is not None:
-                    sym[i], nb[i], ns[i], logs[i] = p.tables
-            else:
-                lits[i, : len(p)] = np.frombuffer(p, np.uint8)
-                nlit[i] = len(p)
-        staged.append({
-            "streams": t(streams, torch.uint8), "tbits": t(tbits),
-            # Packed once here, as K7 takes them, not on every execute().
-            "tables": pack_seq_tables(SeqTables(t(sym), t(nb), t(ns), t(logs))),
-            "nseq": t(nseq), "lits": t(lits, torch.uint8), "nlit": t(nlit),
-            "any_seqs": any(p.nbseq > 0 for p in plans_r),
-        })
+    staged = [_stage_round(entry, B, max_block, dev) for entry in rounds]
     nr = len(rounds)
     MO = _bucket(max(max((h.content_size or nr * max_block) for h in hdrs), 1), lo=4096)
-    rep_init = t(np.tile(np.asarray(REPCODE_INIT, np.int32), (B, 1)))
-    none = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    rep0 = _rep_init(B, dev)
 
     def run():
-        rep = rep_init
-        win = torch.zeros((B, 1), dtype=torch.uint8, device=dev)
-        Wcur, have_ub = 1, 0
-        outs, lens = [], []
-        for r, st in enumerate(staged):
-            if st["any_seqs"]:
-                # K7 serially (one chunk a block), from the repeat offsets the
-                # round before left; its final triple goes to the next round.
-                ll, ml, off, rep = decode_sequences_lanes(
-                    st["streams"], st["tbits"], st["tables"], st["nseq"], rep, none, none,
-                    none.reshape(B, 0, 3), MAX_SEQS_DEC, 1, MAX_SEQS_DEC, rep_fin=True)
-                out, out_len = execute_sequences(st["lits"], st["nlit"], ll, ml, off, st["nseq"],
-                                                 win, max_block, Wcur)
-            else:
-                out, out_len = st["lits"], st["nlit"]
-            outs.append(out)
-            lens.append(out_len.to(torch.int32))
-            if r + 1 < nr:
-                # The history grows by a block a round up to the window cap,
-                # in powers of two from 4 KB, as the reference's executor sees it.
-                have_ub = min(window_cap, have_ub + max_block)
-                Wnext = _bucket(max(have_ub, 4096), lo=4096)
-                win = _carry_window(win, out, out_len, Wnext)
-                Wcur = Wnext
+        outs, lens = zip(*_decode_rounds(staged, nr, rep0, max_block, window_cap))
         return _assemble_rounds(torch.stack(outs), torch.stack(lens), MO)
 
-    checksums = [int.from_bytes(frames[i][cursors[i] : cursors[i] + 4], "little")
-                 if hdrs[i].has_checksum and cursors[i] + 4 <= len(frames[i]) else None
-                 for i in range(nf)]
-    return DecompressPlan([(run, nf)], nf, None, checksums, dev)
+    return DecompressPlan([(run, nf)], nf, None, _stored_checksums(frames, hdrs, cursors), dev)
+
+
+# The longest history `decompress_batch_tpu` keeps (the reference's ceiling).
+WINDOW_CEILING = 1 << 30
+# Rounds `decompress_batch_tpu` keeps on the device before fetching the oldest.
+DRAIN_BEHIND = 4
+
+
+@dataclass
+class ParsedBatch:
+    """A batch parsed on the host for `decompress_batch_tpu`; nothing of it
+    is on a device yet."""
+
+    hdrs: list
+    rounds: list[dict]
+    checksums: list
+    window_cap: int
+    max_block: int
+
+
+def parse_batch(frames: list[bytes], max_block: int = 128 * 1024,
+                window_cap: int | None = None) -> ParsedBatch:
+    """The host half of `decompress_batch_tpu`: headers and every block
+    parsed. Raises ValueError for a frame that cannot be parsed, before any
+    device work."""
+    frames, hdrs, cursors = _parse_headers(frames)
+    if window_cap is None:
+        # From the headers (window descriptor, else content size), up to
+        # WINDOW_CEILING, so that any valid frame decodes.
+        need = max(min(h.window_size or h.content_size or WINDOW_CEILING, WINDOW_CEILING)
+                   for h in hdrs)
+        window_cap = max(4096, -(-need // 4096) * 4096)
+    rounds = _parse_rounds(frames, cursors, max_block)
+    return ParsedBatch(hdrs, rounds, _stored_checksums(frames, hdrs, cursors), window_cap,
+                       max_block)
+
+
+def decode_parsed(parsed: ParsedBatch, verify_checksum: bool = True, device=None) -> list[bytes]:
+    """The device half of `decompress_batch_tpu`: the rounds of `parsed`,
+    each staged and uploaded when its turn comes, decoded in turn on
+    `device` (None means CUDA); finished rounds are fetched to the host
+    DRAIN_BEHIND rounds behind, so the device holds a few rounds at a time.
+    Then each frame's content size and (with verify_checksum) checksum are
+    checked, raising ValueError on a mismatch."""
+    dev = resolve_device(device)
+    nf, rounds, max_block = len(parsed.hdrs), parsed.rounds, parsed.max_block
+    B = _bucket(nf, lo=1)
+    outputs = [bytearray() for _ in range(nf)]
+    pending: list = []
+
+    def drain(n_keep: int) -> None:
+        while len(pending) > n_keep:
+            r0, out, out_len = pending.pop(0)
+            out_h, len_h = out.cpu().numpy(), out_len.cpu().numpy()
+            for i in rounds[r0]:
+                outputs[i] += out_h[i, : len_h[i]].tobytes()
+
+    staged = (_stage_round(entry, B, max_block, dev) for entry in rounds)
+    for r, (out, out_len) in enumerate(_decode_rounds(staged, len(rounds), _rep_init(B, dev),
+                                                      max_block, parsed.window_cap)):
+        pending.append((r, out, out_len))
+        drain(DRAIN_BEHIND)
+    drain(0)
+    results = []
+    for i, hdr in enumerate(parsed.hdrs):
+        out = bytes(outputs[i])
+        if hdr.has_checksum and verify_checksum and parsed.checksums[i] != content_checksum(out):
+            raise ValueError(f"content checksum mismatch (frame {i})")
+        if hdr.content_size is not None and len(out) != hdr.content_size:
+            raise ValueError(f"content size mismatch (frame {i}): {len(out)} != "
+                             f"{hdr.content_size}")
+        results.append(out)
+    return results
+
+
+def decompress_batch_tpu(frames: list[bytes], max_block: int = 128 * 1024,
+                         window_cap: int | None = None, verify_checksum: bool = True,
+                         device=None) -> list[bytes]:
+    """Decompress a batch of zstd frames of any number of blocks, one round
+    of blocks at a time on `device` (None means CUDA; raises without it);
+    returns each frame's content (reference `decompress_batch_tpu`).
+
+    window_cap: the history cross-block matches see. None derives it from
+    the frames' headers (window descriptor or content size, up to 1 GiB),
+    so any valid frame decodes; a smaller cap trades correctness on
+    long-window frames for memory. Leading skippable frames are skipped.
+    Raises ValueError for a frame that cannot be parsed (before any device
+    work), for a block of more than max_block bytes or MAX_SEQS_DEC
+    sequences, and for a content size or (with verify_checksum) checksum
+    mismatch. An empty batch returns []."""
+    dev = resolve_device(device)
+    if not frames:
+        return []
+    return decode_parsed(parse_batch(frames, max_block, window_cap), verify_checksum, dev)

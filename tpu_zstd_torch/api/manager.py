@@ -1,7 +1,17 @@
-"""Batch compression of many buffers in one device batch.
+"""Managers: single-shot, batch and streaming-decode surfaces of the port.
 
-Counterpart of `compress_items_tpu` and `BatchManager.compress_batch` in
-tpu_zstd/api/manager.py, without cross-block windows: every item's blocks
+Counterpart of tpu_zstd/api/manager.py: `Manager` (single-shot, routed by
+size: inputs under `cpu_threshold` compress with the host codec, larger
+ones on the card; `decompress` on the card through `decompress_batch_tpu`
+on the device execution paths, else with the host decoder),
+`BatchManager` (`compress_batch`, `compress_batch_async`,
+`decompress_batch`, `decompress_batch_to_device`) and
+`StreamingDecompressor` (incremental host decode of arbitrary chunks).
+`Manager` and `BatchManager` resolve their device when made: None means
+CUDA, and they raise without it.
+
+`compress_items` is the counterpart of `compress_items_tpu`, without
+cross-block windows: every item's blocks
 flatten into one (B, 128 KB) batch padded to a power-of-two bucket, the
 batch runs through `compress_blocks_staged`, the contents are trimmed on the
 device to the largest non-Raw block before the copy to the host, and each
@@ -23,12 +33,29 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import BLOCK_COMPRESSED, BLOCK_RAW, BLOCK_RLE
+from ..constants import (
+    BLOCK_COMPRESSED,
+    BLOCK_RAW,
+    BLOCK_RLE,
+    REPCODE_INIT,
+    SKIPPABLE_MAGIC_MAX,
+    SKIPPABLE_MAGIC_MIN,
+    ZSTD_MAGIC,
+)
+from ..format import frame as host_frame
 from ..format.accel import write_accel_frame
-from ..format.frame import write_frame_header
-from ..format.xxhash import content_checksum
+from ..format.frame import decode_literals_section, parse_frame_header, write_frame_header
+from ..format.sequences import decode_sequences_section, execute_sequences
+from ..format.xxhash import XXH64State, content_checksum
 from ..ops.pipeline import PipelineConfig, check_supported, compress_blocks_staged, resolve_device
-from .config import ChecksumPolicy, CompressionConfig, CompressionStats, Status, Strategy
+from .config import (
+    ChecksumPolicy,
+    CompressionConfig,
+    CompressionStats,
+    ExecutionPath,
+    Status,
+    Strategy,
+)
 
 
 # Decoder-checkpoint stride (sequences per chunk; format/accel.py).
@@ -205,8 +232,103 @@ class BatchItem:
     status: Status = Status.SUCCESS
 
 
+class Manager:
+    """Single-shot compress / decompress (context-manager friendly), on
+    `device` (None means CUDA; raises without it, even where an input then
+    takes the host route)."""
+
+    def __init__(self, level: int = 3, config: CompressionConfig | None = None,
+                 execution_path: ExecutionPath = ExecutionPath.AUTO, device=None):
+        self.config = config or CompressionConfig.from_level(level)
+        st = self.config.validate()
+        if st != Status.SUCCESS:
+            raise ValueError(f"invalid config: {st.name}")
+        _check_port_supports(self.config)
+        self.execution_path = execution_path
+        self.device = resolve_device(device)
+        self.stats = CompressionStats()
+        self._closed = False
+
+    def __enter__(self) -> "Manager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        self._closed = True
+
+    def select_execution_path(self, size: int) -> ExecutionPath:
+        """Routing by size: inputs under cpu_threshold go to the host codec,
+        larger ones to the card, unless the manager was given a path."""
+        if self.execution_path != ExecutionPath.AUTO:
+            return self.execution_path
+        if size < self.config.cpu_threshold:
+            return ExecutionPath.CPU
+        return ExecutionPath.TPU_BATCH
+
+    def compress(self, data: bytes) -> bytes:
+        t0 = time.perf_counter()
+        if self.select_execution_path(len(data)) == ExecutionPath.CPU:
+            out = self._compress_cpu(data)
+        else:
+            out = compress_items([data], self.config, device=self.device)[0]
+        dt = time.perf_counter() - t0
+        self.stats.total_input_bytes += len(data)
+        self.stats.total_output_bytes += len(out)
+        self.stats.total_frames += 1
+        self.stats.total_blocks += max(1, -(-len(data) // self.config.block_size))
+        self.stats.total_compress_calls += 1
+        self.stats.total_compress_time_s += dt
+        return out
+
+    def decompress(self, data: bytes, max_output_size: int | None = None) -> bytes:
+        """On the device execution paths, `decompress_batch_tpu` on the card
+        (checksum checked unless the policy is NONE); else the host decoder
+        (checksum checked under COMPUTE_AND_VERIFY)."""
+        t0 = time.perf_counter()
+        if self.execution_path in (ExecutionPath.TPU_BATCH, ExecutionPath.TPU_CHUNK):
+            from .decompress import decompress_batch_tpu
+
+            out = decompress_batch_tpu(
+                [data], verify_checksum=self.config.checksum != ChecksumPolicy.NONE,
+                device=self.device)[0]
+        else:
+            out = _decompress_host(
+                data, max_output_size,
+                verify=self.config.checksum == ChecksumPolicy.COMPUTE_AND_VERIFY)
+        self.stats.total_decompress_calls += 1
+        self.stats.total_decompress_time_s += time.perf_counter() - t0
+        return out
+
+    def _compress_cpu(self, data: bytes) -> bytes:
+        """The host route: the pure-Python codec (format/frame.py
+        `compress`) with the parameters the reference's manager gives it
+        (the reference tries its native C++ engine first; the port has
+        none)."""
+        return host_frame.compress(data, host_frame.CompressParams(
+            level=self.config.level,
+            hash_log=min(self.config.hash_log, 16),
+            search_depth=self.config.search_depth,
+            min_match=self.config.min_match,
+            lazy=self.config.strategy >= Strategy.LAZY,
+            block_size=self.config.block_size,
+            checksum=self.config.checksum != ChecksumPolicy.NONE,
+        ))
+
+
+def _decompress_host(data: bytes, max_output_size: int | None = None,
+                     verify: bool = False) -> bytes:
+    """Host decompression of (concatenated) frames with the port's own
+    decoder (format/frame.py `decompress`). The reference tries libzstd
+    (`zstandard`) first; the port does not use it. max_output_size is
+    accepted and unused, as in the reference's fallback."""
+    return host_frame.decompress(data, verify_checksum=verify)
+
+
 class BatchManager:
-    """Batched many-buffer compression: one device batch per call."""
+    """Batched many-buffer compression (one device batch per call) and
+    batch decompression, on `device` (None means CUDA; raises without it)."""
 
     def __init__(self, level: int = 3, config: CompressionConfig | None = None, device=None):
         self.config = config or CompressionConfig.from_level(level)
@@ -234,3 +356,191 @@ class BatchManager:
         self.stats.total_compress_calls += 1
         self.stats.total_compress_time_s += dt
         return norm
+
+    def compress_batch_async(self, items: list[bytes]):
+        """Dispatch now, resolve later: compress_batch runs in a worker
+        thread; the returned zero-argument resolver waits for it and returns
+        its list[BatchItem] (or raises its exception)."""
+        import concurrent.futures
+
+        ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        fut = ex.submit(self.compress_batch, items)
+
+        def resolve() -> list[BatchItem]:
+            try:
+                return fut.result()
+            finally:
+                ex.shutdown(wait=False)
+
+        return resolve
+
+    def decompress_batch_to_device(self, items: list[bytes], max_block: int = 128 * 1024):
+        """Decompress into device-resident rows (see api/decompress.py
+        `decompress_batch_to_device`): (out, lengths) on the manager's device."""
+        from .decompress import decompress_batch_to_device
+
+        return decompress_batch_to_device(items, max_block, device=self.device)
+
+    def decompress_batch(self, items: list[BatchItem] | list[bytes],
+                         use_tpu: bool = False) -> list[BatchItem]:
+        """Decompress every item; each gets its output and a status.
+
+        use_tpu=True decodes the batch on the manager's device
+        (`decompress_batch_tpu`). Only a ValueError raised while the frames
+        are parsed on the host, before any device work, sends the batch to
+        the per-item host path; any error after that propagates, so a
+        failure of the card or of a kernel is never hidden. The host path
+        (use_tpu=False, or that fall-through) decodes item by item and marks
+        an item it cannot decode ERROR_CORRUPT_DATA."""
+        t0 = time.perf_counter()
+        norm = [it if isinstance(it, BatchItem) else BatchItem(it) for it in items]
+        if use_tpu:
+            from .decompress import decode_parsed, parse_batch
+
+            try:
+                parsed = parse_batch([it.data for it in norm]) if norm else None
+            except ValueError:
+                parsed = None
+            if parsed is not None:
+                outs = decode_parsed(parsed, device=self.device)
+                for it, out in zip(norm, outs):
+                    it.output, it.status = out, Status.SUCCESS
+                self.stats.total_decompress_calls += 1
+                self.stats.total_decompress_time_s += time.perf_counter() - t0
+                return norm
+        for it in norm:
+            try:
+                it.output = _decompress_host(it.data)
+                it.status = Status.SUCCESS
+            except Exception:
+                it.output = None
+                it.status = Status.ERROR_CORRUPT_DATA
+        self.stats.total_decompress_calls += 1
+        self.stats.total_decompress_time_s += time.perf_counter() - t0
+        return norm
+
+
+class StreamingDecompressor:
+    """Incremental frame decoder on the host (the reference's
+    StreamingDecompressor): feed arbitrary byte chunks; decoded bytes come
+    back as soon as whole blocks are in. Window history, repeat offsets,
+    Repeat-mode FSE tables and the treeless Huffman table persist across
+    chunk boundaries (RFC 8878 §3.1.1.5); checksums are checked
+    incrementally (streaming XXH64, no full-output buffering);
+    back-to-back frames and skippable frames are handled."""
+
+    def __init__(self, window_cap: int = 1 << 23, verify_checksum: bool = True):
+        self.window_cap = window_cap
+        self.verify_checksum = verify_checksum
+        self.reset()
+
+    def reset(self) -> None:
+        self._buf = bytearray()
+        self._phase = "frame_header"
+        self._hdr = None
+        self._content_len = 0
+        self.frames_completed = 0
+        self._reset_frame_state()
+
+    def _reset_frame_state(self) -> None:
+        self._window = b""
+        self._rep = list(REPCODE_INIT)
+        self._seq_tables = None
+        self._huff = None
+        self._hash = XXH64State()
+
+    @property
+    def at_frame_boundary(self) -> bool:
+        """True when no partial frame is pending (flush would succeed)."""
+        return self._phase == "frame_header" and not self._buf
+
+    def decompress_chunk(self, data: bytes) -> bytes:
+        """Consume more compressed bytes; return the newly decoded bytes."""
+        self._buf += data
+        out = bytearray()
+        while True:
+            buf = self._buf
+            if self._phase == "frame_header":
+                if len(buf) < 4:
+                    break
+                magic = int.from_bytes(buf[:4], "little")
+                if SKIPPABLE_MAGIC_MIN <= magic <= SKIPPABLE_MAGIC_MAX:
+                    if len(buf) < 8:
+                        break
+                    size = int.from_bytes(buf[4:8], "little")
+                    if len(buf) < 8 + size:
+                        break
+                    del self._buf[: 8 + size]
+                    continue
+                if magic != ZSTD_MAGIC:
+                    raise ValueError(f"bad magic 0x{magic:08X}")
+                if len(buf) < 5:
+                    break
+                fhd = buf[4]
+                fcs_flag, single_segment, did_flag = fhd >> 6, (fhd >> 5) & 1, fhd & 3
+                need = (5 + (0 if single_segment else 1) + (0, 1, 2, 4)[did_flag]
+                        + ((1 if single_segment else 0), 2, 4, 8)[fcs_flag])
+                if len(buf) < need:
+                    break
+                self._hdr = parse_frame_header(bytes(buf[:need]))
+                del self._buf[:need]
+                self._phase = "blocks"
+                self._content_len = 0
+                self._reset_frame_state()
+                continue
+            if self._phase == "blocks":
+                if len(buf) < 3:
+                    break
+                bh = int.from_bytes(buf[:3], "little")
+                last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
+                body_len = 1 if btype == BLOCK_RLE else bsize
+                if len(buf) < 3 + body_len:
+                    break
+                body = bytes(buf[3 : 3 + body_len])
+                del self._buf[: 3 + body_len]
+                if btype == BLOCK_RAW:
+                    decoded = body
+                elif btype == BLOCK_RLE:
+                    decoded = body[:1] * bsize
+                elif btype == BLOCK_COMPRESSED:
+                    lit = decode_literals_section(body, self._huff)
+                    self._huff = lit.huff_table
+                    seqs, new_tables, _ = decode_sequences_section(body[lit.consumed :],
+                                                                   self._seq_tables)
+                    if seqs is not None:
+                        self._seq_tables = new_tables
+                    decoded, self._rep = execute_sequences(lit.data, seqs, self._rep,
+                                                           window=self._window)
+                else:
+                    raise ValueError("reserved block type")
+                out += decoded
+                self._content_len += len(decoded)
+                self._window = (self._window + decoded)[-self.window_cap :]
+                if self.verify_checksum and self._hdr.has_checksum:
+                    self._hash.update(decoded)
+                if last:
+                    cs = self._hdr.content_size
+                    if cs is not None and self._content_len != cs:
+                        raise ValueError(f"content size mismatch: {self._content_len} != {cs}")
+                    self._phase = "checksum" if self._hdr.has_checksum else "frame_header"
+                    if self._phase == "frame_header":
+                        self.frames_completed += 1
+                continue
+            if self._phase == "checksum":
+                if len(buf) < 4:
+                    break
+                stored = int.from_bytes(buf[:4], "little")
+                del self._buf[:4]
+                if self.verify_checksum and stored != (self._hash.digest() & 0xFFFFFFFF):
+                    raise ValueError("content checksum mismatch")
+                self.frames_completed += 1
+                self._phase = "frame_header"
+                continue
+        return bytes(out)
+
+    def flush(self) -> bytes:
+        """Check that the stream ended at a frame boundary (blocks decode
+        eagerly, so nothing is buffered)."""
+        if not self.at_frame_boundary:
+            raise ValueError("incomplete frame at flush")
+        return b""

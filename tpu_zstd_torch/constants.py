@@ -2,8 +2,9 @@
 
 The port's own copy of the tables it needs (magics, block, literal and
 sequence-mode types, LL/ML code tables and extra bits, predefined FSE
-distributions, FSE and Huffman limits); values follow RFC 8878
-and are held equal to tpu_zstd/constants.py by the tests.
+distributions, FSE and Huffman limits, the LL/ML/OF code functions of the
+host encoder); values follow RFC 8878 and are held equal to
+tpu_zstd/constants.py by the tests.
 """
 
 from __future__ import annotations
@@ -117,9 +118,44 @@ OF_DEFAULT_LOG = 5
 # FSE and Huffman limits
 FSE_MAX_TABLELOG = 12
 FSE_MIN_TABLELOG = 5
+FSE_DEFAULT_TABLELOG = 11
 HUF_MAX_BITS = 11  # literal code-length limit (decode tables of 2^11 entries)
+HUF_WEIGHT_FSE_LOG_MAX = 6
 
 
-def highbit32(v: int) -> int:
-    """Position of the highest set bit of a Python int v >= 1."""
-    return int(v).bit_length() - 1
+def highbit32(v):
+    """Position of the highest set bit (floor(log2(v))) of v >= 1: a Python
+    int for a Python or numpy integer, an int32 array for an array."""
+    if isinstance(v, (int, np.integer)):
+        return int(v).bit_length() - 1
+    v = np.asarray(v, dtype=np.uint32)
+    out = np.zeros(v.shape, dtype=np.int32)
+    for shift in (16, 8, 4, 2, 1):
+        mask = v >= (np.uint32(1) << np.uint32(shift))
+        out += np.where(mask, shift, 0).astype(np.int32)
+        v = np.where(mask, v >> np.uint32(shift), v)
+    return out
+
+
+def ll_code(ll):
+    """Literal length value -> LL code (scalar or numpy array)."""
+    ll = np.asarray(ll, dtype=np.uint32)
+    small = ll < 64
+    return np.where(
+        small, LL_CODE_TABLE[np.minimum(ll, 63)], LL_DELTA_CODE + highbit32(np.maximum(ll, 1))
+    ).astype(np.uint32)
+
+
+def ml_code(ml):
+    """Match length value (>= 3) -> ML code."""
+    ml = np.asarray(ml, dtype=np.uint32)
+    base = ml - 3
+    small = base < 128
+    return np.where(
+        small, ML_CODE_TABLE[np.minimum(base, 127)], ML_DELTA_CODE + highbit32(np.maximum(base, 1))
+    ).astype(np.uint32)
+
+
+def of_code(off_base):
+    """Offset base value (offset + 3, or repcode 1..3) -> OF code (its high bit)."""
+    return highbit32(off_base)

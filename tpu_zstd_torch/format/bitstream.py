@@ -1,13 +1,52 @@
-"""Zstandard bitstream readers, RFC 8878 §4.1 (host side).
+"""Zstandard bitstream writer and readers, RFC 8878 §4.1 (host side).
 
-The port's copy of `BackwardBitReader` and `ForwardBitReader` from
-tpu_zstd/format/bitstream.py. Entropy payloads are written forward,
-LSB-first, and read backward: the last byte carries a sentinel 1-bit above
-the last data bit, and fields come out most-recently-written first. FSE
-table headers (NCount) are read forward.
+The port's copy of `BackwardBitWriter`, `BackwardBitReader` and
+`ForwardBitReader` from tpu_zstd/format/bitstream.py. Entropy payloads are
+written forward, LSB-first, and read backward: the last byte carries a
+sentinel 1-bit above the last data bit, and fields come out
+most-recently-written first. FSE table headers (NCount) are read forward.
 """
 
 from __future__ import annotations
+
+
+class BackwardBitWriter:
+    """Accumulates LSB-first bits; decoders read the byte stream backward."""
+
+    def __init__(self) -> None:
+        self._container = 0
+        self._nbits = 0
+        self._bytes = bytearray()
+
+    def add_bits(self, value: int, nbits: int) -> None:
+        if nbits == 0:
+            return
+        assert nbits <= 56, "flush before exceeding container"
+        self._container |= (value & ((1 << nbits) - 1)) << self._nbits
+        self._nbits += nbits
+        if self._nbits >= 56:
+            self.flush()
+
+    def flush(self) -> None:
+        """Flush whole bytes out of the container."""
+        nbytes = self._nbits >> 3
+        for _ in range(nbytes):
+            self._bytes.append(self._container & 0xFF)
+            self._container >>= 8
+        self._nbits -= nbytes * 8
+
+    def close(self) -> bytes:
+        """Write the sentinel 1-bit and pad to a byte boundary."""
+        self.add_bits(1, 1)
+        self.flush()
+        if self._nbits > 0:
+            self._bytes.append(self._container & 0xFF)
+            self._container = 0
+            self._nbits = 0
+        return bytes(self._bytes)
+
+    def bit_position(self) -> int:
+        return len(self._bytes) * 8 + self._nbits
 
 
 class BackwardBitReader:
@@ -57,6 +96,9 @@ class BackwardBitReader:
         self._bits_left -= nbits
         if self._bits_left < 0:
             self.overflowed = True
+
+    def bits_consumed_ok(self) -> bool:
+        return self._bits_left == 0
 
     @property
     def bits_left(self) -> int:
