@@ -160,6 +160,31 @@ Phases, in order; any failure exits non-zero:
    `tpu_zstd_torch.decompress` on the host and `decompress_batch_tpu` on
    the card; `StreamingDecompressor` fed phase 3's and phase 4's 4-block
    frames in 4 KB chunks returns their inputs.
+4f. Cross-block windows, on the inputs of tests/golden/torch_slice6.json
+   (tests/torch_cases.py `slice6_inputs`, from the bench corpus), each path
+   driven once through its entry point with the counts set to 0 just before
+   and read just after, its kernels held against their plain versions on
+   the inputs it gave them, its peak device memory printed:
+   `compress_items` with enable_ldm over 16 items of 1 MiB (128 rows of a
+   64 KB window and a 128 KB block), against the golden, decoded by the
+   prepared plan and timed as the multi-block decodes are, with the
+   compress time beside it; `StreamingManager(level=3)` over the corpus in
+   16 chunks of 1 MiB (the 64 KB history, the search over the whole row),
+   against the golden, decoded by `decompress_batch_tpu` (128 rounds; the
+   host parse and the device half timed) and by the manager's decompress
+   half on the host; `compress_items` at level 19 of 8 blocks behind a 64
+   KB history (K10 on rows of 192 segments), against the golden and
+   decoded on the card behind its history; `train_dictionary` (64 KB) on
+   1024 records and `compress_with_dict` of 256 others, against the
+   golden, decoded by `decompress_with_dict` on the host; a
+   `StreamingManager(window_log=20)` stream over a 1 MiB history whose
+   next chunk repeats it at offset 2^20 and past it (rows of 1,179,648),
+   decoded on the card. Phase 2 also holds K1 at rows of 196,608 and
+   1,179,648 bytes, K2 on hard operands of 96 windows of 2048 a row and K3
+   on 192 segments a row, each timed beside its bound; phase 5 times K1,
+   K2 and K3 on the largest input each window path gave them, and the
+   kernel line gives each kernel's launches on every window path
+   (`launches_windows`).
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
    of 2), peak device memory, the parse and encode stages; at level 19 the
    pipelined batch (best of 2) and its peak device memory; the decode as
@@ -420,14 +445,17 @@ def main() -> int:
     import torch_cases  # the seeded hard inputs of K4 and K8/K9
     from tpu_zstd_torch.api import decompress
     from tpu_zstd_torch.api.config import ChecksumPolicy, CompressionConfig, ExecutionPath, Status
+    from tpu_zstd_torch import dictionary
     from tpu_zstd_torch.api.manager import (
         BatchManager,
         Manager,
         StreamingDecompressor,
+        StreamingManager,
         _pipeline_config,
+        _strip_frame_to_blocks,
         compress_items,
     )
-    from tpu_zstd_torch.constants import BLOCK_RLE
+    from tpu_zstd_torch.constants import BLOCK_RAW, BLOCK_RLE
     from tpu_zstd_torch.corpus import make_corpus
     from tpu_zstd_torch.format.frame import parse_frame_header, write_frame_header
     from tpu_zstd_torch.format.xxhash import content_checksum
@@ -456,6 +484,7 @@ def main() -> int:
     golden3 = json.loads((ROOT / "tests" / "golden" / "torch_slice3.json").read_text())
     golden4 = json.loads((ROOT / "tests" / "golden" / "torch_slice4.json").read_text())
     golden5 = json.loads((ROOT / "tests" / "golden" / "torch_slice5.json").read_text())
+    golden6 = json.loads((ROOT / "tests" / "golden" / "torch_slice6.json").read_text())
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = _card_line()
@@ -683,6 +712,31 @@ def main() -> int:
     kops[2] = kops[2]._replace(src=shifted[..., : hi["SC"]])
     hold("concat", (kops,), "fused hard operands, sources off 16 bytes")
     del kops, shifted, run_k2
+    # K1, K2 and K3 at the widths of phase 4f's rows: a 64 KB window before a
+    # 128 KB block (196,608; K2 joins 96 windows of 2048, K3 walks 192
+    # segments a row) and, for K1, a 1 MiB window (1,179,648).
+    for R, W in ((B, 196608), (8, 1179648)):
+        xw = cu(rng.integers(0, 256, (R, W), dtype=np.uint8))
+        sw_ = cu(rng.integers(0, W + 1, R))
+        hold("roll", (xw, sw_), f"u8 ({R}, {W})")
+        print(f"time [{card}]: K1 u8 ({R}, {W}) {_time_ms(lambda: roll.roll_rows(xw, sw_), 20):.4f}"
+              f" ms, bound {(2 * xw.numel() + 8 * R) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del xw, sw_
+    kops = fused_ops(seed=389, B=B, NW=96, W=2048, lit_len=196608, seq_len=32768)
+    hold("concat", (kops,), "fused hard operands, the enable_ldm rows' shape (128, 96, 2048)")
+    run_k2 = lambda: concat.concat_fused(kops)  # noqa: E731
+    print(f"time [{card}]: K2 fused hard operands (128, 96, 2048) -> 196608 bytes and 32768 rows:"
+          f" {_time_ms(run_k2, 20):.4f} ms")
+    del kops, run_k2
+    S192 = B * 192
+    stepw = np.minimum(rng.integers(1, 40, (S192, 1024)), 1024 - np.arange(1024))
+    matchw = (rng.random((S192, 1024)) < 0.4) & (stepw >= 4)
+    deferw = (rng.random((S192, 1024)) < 0.1) & matchw
+    gw = cu((stepw | matchw << 11 | deferw << 12).astype(np.int32))
+    hold("greedy", (gw,), f"({S192}, 1024)")
+    print(f"time [{card}]: K3 ({S192}, 1024) {_time_ms(lambda: greedy.greedy_segments(gw), 20):.4f}"
+          f" ms, bound {5 * gw.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del gw, stepw, matchw, deferw
     seg, S = 1024, B * N // 1024
     step = rng.integers(1, 40, (S, seg))
     step = np.minimum(step, seg - np.arange(seg))
@@ -1651,6 +1705,227 @@ def main() -> int:
           f"{t_sd:.2f} s = {len(got) / t_sd / 1e6:.3f} MB/s on the host)")
     print(f"phase 4e: done ({time.perf_counter() - t4e:.1f} s)")
 
+    # --- 4f. cross-block windows: enable_ldm items, the streaming compressor, level 19 with
+    # a history, dictionaries, a 1 MiB history ---------------------------------------------
+    # The inputs of tests/golden/torch_slice6.json (tests/torch_cases.py
+    # slice6_inputs, from the bench corpus), each path driven once through its
+    # entry point with the counts set to 0 just before and read just after,
+    # its frames against the golden, decoded on the card (the dictionary
+    # frames on the host decoder), the kernels against their plain versions
+    # on the inputs each path gave them, the peak device memory of each.
+    t4f = time.perf_counter()
+    inp6 = torch_cases.slice6_inputs(data, N)
+    if golden6["corpus"] != f"make_corpus({B} * {N})" or golden6["item"] != len(inp6["items"][0]):
+        _fail("phase 4f: torch_slice6.json is not made from the bench corpus")
+    win_launches: dict = {}
+    win_captured: dict = {}
+
+    def peak_base() -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_gib(base: int) -> str:
+        return f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB"
+
+    def same_frames(frames_x, gold, label):
+        bad = [k for k, (f_, g_) in enumerate(zip(frames_x, gold))
+               if (len(f_), _sha(f_)) != (g_["len"], g_["sha256"])]
+        if bad or len(frames_x) != len(gold):
+            _fail(f"{label}: {len(bad)} of {len(gold)} frames differ from the JAX golden "
+                  f"(first {bad[:8]})")
+
+    def must_launch(launches_x, names, label):
+        for k in names:
+            if launches_x.get(k, 0) <= 0:
+                _fail(f"{label}: kernel {k} was not launched ({launches_x})")
+
+    def best_of(fn, reps=2):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    # 1. compress_items with enable_ldm: 16 items of 1 MiB, 128 rows of a 64
+    # KB window and a 128 KB block (the windowed search on the payload, the
+    # long-range pass over the row); decoded by the prepared plan.
+    cfg_ldm = dataclasses.replace(CompressionConfig.from_level(3), enable_ldm=True)
+    base = peak_base()
+    frames_ldm, win_launches["ldm_items"], win_captured["ldm_items"] = drive(
+        lambda: compress_items(inp6["items"], cfg_ldm))
+    peak_ldm = peak_gib(base)
+    same_frames(frames_ldm, golden6["ldm_items"]["frames"], "phase 4f enable_ldm items")
+    must_launch(win_launches["ldm_items"], ("roll", "concat", "greedy", "rep", "chain"),
+                "phase 4f enable_ldm items")
+    for f_, d_ in zip(frames_ldm, inp6["items"]):
+        decodes(f_, d_, "an enable_ldm item frame")
+    t_ldm = best_of(lambda: compress_items(inp6["items"], cfg_ldm))
+    nb_ldm = sum(map(len, frames_ldm))
+    print(f"phase 4f: compress_items(16 x 1 MiB, level 3, enable_ldm) == JAX golden "
+          f"({nb_ldm} bytes, ratio {len(data) / nb_ldm:.4f}; launches "
+          f"{win_launches['ldm_items']}; peak device memory {peak_ldm})")
+    print(f"time [{card}]: enable_ldm items compress_items {t_ldm * 1e3:.3f} ms = "
+          f"{len(data) / t_ldm / 1e9:.4f} GB/s (best of 2, the frames in Python included)")
+    hold_captured(win_captured["ldm_items"], "phase 4f enable_ldm items")
+    decode_multi("phase 4f enable_ldm items", frames_ldm, inp6["items"], False,
+                 hold_kernels=True, timed=True)
+
+    # 2. StreamingManager(level=3): the corpus in 16 chunks of 1 MiB, each
+    # block with a 64 KB history (the search over the whole row of 192 KB);
+    # decoded by decompress_batch_tpu on the card (128 rounds) and by the
+    # manager's decompress half on the host.
+    def stream_run(cfg_s, chunks):
+        sm_ = StreamingManager(config=cfg_s)
+        return b"".join(sm_.compress_chunk(c) for c in chunks) + sm_.flush()
+
+    cfg_s3 = CompressionConfig.from_level(3)
+    base = peak_base()
+    stream6, win_launches["stream"], win_captured["stream"] = drive(
+        lambda: stream_run(cfg_s3, inp6["items"]))
+    peak_st = peak_gib(base)
+    if (len(stream6), _sha(stream6)) != (golden6["stream"]["len"], golden6["stream"]["sha256"]):
+        _fail(f"phase 4f: the StreamingManager stream differs from the JAX golden "
+              f"({len(stream6)} bytes)")
+    must_launch(win_launches["stream"], ("roll", "greedy", "rep", "chain"), "phase 4f stream")
+    decodes(stream6, data, "the level-3 stream")
+    t_st = best_of(lambda: stream_run(cfg_s3, inp6["items"]))
+    print(f"phase 4f: StreamingManager(level=3) over 16 chunks of 1 MiB == JAX golden "
+          f"({len(stream6)} bytes, ratio {len(data) / len(stream6):.4f}; launches "
+          f"{win_launches['stream']}; peak device memory {peak_st})")
+    hold_captured(win_captured["stream"], "phase 4f stream")
+    base = peak_base()
+    out_st, st_dec_launches, st_dec_captured = record(
+        dec_sites, lambda: decompress.decompress_batch_tpu([stream6]), True)
+    peak_std = peak_gib(base)
+    if out_st != [data]:
+        _fail("phase 4f: decompress_batch_tpu returned other bytes than the stream's input")
+    must_launch(st_dec_launches, ("decode_seq", "exec"), "phase 4f stream decode")
+    # K7's plain version walks every round's blocks serially (~8 s an
+    # input): hold each kernel on the largest input this decode gave it;
+    # phase 4e holds both on every input of a 128-round decode.
+    hold_captured({k: dict([max(v.items(), key=lambda kv: sum(
+        a.numel() * a.element_size() for a in kv[1][0] if torch.is_tensor(a)))]) if v else {}
+        for k, v in st_dec_captured.items()}, "phase 4f stream decode")
+    del st_dec_captured
+    t0 = time.perf_counter()
+    parsed_st = decompress.parse_batch([stream6])
+    t_pst = time.perf_counter() - t0
+    t_dst = best_of(lambda: decompress.decode_parsed(parsed_st))
+    dev_st = _device_ms_by_name(lambda: decompress.decode_parsed(parsed_st), {
+        "K7": "decode_sequences_kernel", "K8": "exec_sequences_kernel", "every kernel": ""})
+    del parsed_st
+    print(f"time [{card}]: StreamingManager(level=3) compress {t_st:.3f} s = "
+          f"{len(data) / t_st / 1e9:.4f} GB/s (best of 2, 16 compress_chunk calls and flush); "
+          f"decompress_batch_tpu: the host parse {t_pst:.3f} s, the device half "
+          f"{t_dst:.3f} s = {len(data) / t_dst / 1e9:.4f} GB/s (best of 2; K7 / K8 launches "
+          f"{st_dec_launches['decode_seq']} / {st_dec_launches['exec']}; peak device memory "
+          f"{peak_std}); on the device a decode: "
+          + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in dev_st.items()))
+    sm_dec = StreamingManager(level=3)
+    t0 = time.perf_counter()
+    back = b"".join(sm_dec.decompress_chunk(stream6[p : p + (1 << 20)])
+                    for p in range(0, len(stream6), 1 << 20)) + sm_dec.decompress_flush()
+    t_sdec = time.perf_counter() - t0
+    if back != data:
+        _fail("phase 4f: StreamingManager.decompress_chunk did not return the stream's input")
+    print(f"phase 4f: StreamingManager.decompress_chunk (its StreamingDecompressor, on the host) "
+          f"fed the stream in 1 MiB chunks == the input ({t_sdec:.2f} s = "
+          f"{len(data) / t_sdec / 1e6:.3f} MB/s)")
+
+    # 3. compress_items at level 19 with a 64 KB history: 8 blocks, K10 on
+    # rows of 192 segments; decoded on the card as one frame of the history
+    # (a Raw block) and the item's blocks.
+    cfg19h = CompressionConfig.from_level(19)
+    base = peak_base()
+    (f19h,), win_launches["history19"], win_captured["history19"] = drive(
+        lambda: compress_items([inp6["item19"]], cfg19h, history=[inp6["history"]]))
+    peak_19h = peak_gib(base)
+    g19 = golden6["history19"]
+    if (len(f19h), _sha(f19h)) != (g19["len"], g19["sha256"]):
+        _fail(f"phase 4f: the level-19 history frame differs from the JAX golden ({len(f19h)} "
+              f"bytes)")
+    must_launch(win_launches["history19"], ("roll", "greedy", "rep", "chain", "opt"),
+                "phase 4f level-19 history")
+    opt_rows = sorted(k[0][0][0] for k in win_captured["history19"]["opt"])
+    if opt_rows != [(8 * (N + len(inp6["history"])) // 1024, 1024)]:
+        _fail(f"phase 4f: K10 ran on {opt_rows}, not 8 rows of 192 segments")
+    t_19h = best_of(lambda: compress_items([inp6["item19"]], cfg19h,
+                                           history=[inp6["history"]]))
+    hold_captured(win_captured["history19"], "phase 4f level-19 history")
+    joined = (write_frame_header(len(inp6["history"]) + len(inp6["item19"]), window_log=20)
+              + ((len(inp6["history"]) << 3) | (BLOCK_RAW << 1)).to_bytes(3, "little")
+              + inp6["history"] + _strip_frame_to_blocks(f19h, clear_last=False))
+    out19h, l19d, _ = record([], lambda: decompress.decompress_batch_tpu([joined]), True)
+    if out19h != [inp6["history"] + inp6["item19"]]:
+        _fail("phase 4f: the level-19 history frame does not decode on the card")
+    print(f"phase 4f: compress_items(1 MiB, level 19, 64 KB history) == JAX golden "
+          f"({len(f19h)} bytes; K10 on {opt_rows[0]}; launches {win_launches['history19']}; "
+          f"peak device memory {peak_19h}); decoded on the card behind its history (K7 / K8 "
+          f"launches {l19d['decode_seq']} / {l19d['exec']})")
+    print(f"time [{card}]: level-19 history compress_items {t_19h * 1e3:.3f} ms = "
+          f"{len(inp6['item19']) / t_19h / 1e9:.4f} GB/s (best of 2)")
+
+    # 4. Dictionaries: train_dictionary (64 KB) on 1024 records, then
+    # compress_with_dict of 256 others on the card (256 rows of a 64 KB
+    # dictionary tail and a 128 KB block, searched over the whole row);
+    # decompress_with_dict on the host decoder.
+    t0 = time.perf_counter()
+    dct = dictionary.train_dictionary(inp6["train"], dict_size=64 * 1024)
+    t_train = time.perf_counter() - t0
+    gd = golden6["dictionary"]
+    if (len(dct.content), _sha(dct.content), dct.dict_id) != (gd["content_len"],
+                                                             gd["content_sha256"], gd["dict_id"]):
+        _fail("phase 4f: train_dictionary differs from the JAX golden")
+    base = peak_base()
+    frames_d, win_launches["dict"], win_captured["dict"] = drive(
+        lambda: dictionary.compress_with_dict(inp6["records"], dct))
+    peak_d = peak_gib(base)
+    same_frames(frames_d, gd["frames"], "phase 4f dictionary frames")
+    must_launch(win_launches["dict"], ("roll", "greedy", "rep", "chain"), "phase 4f dictionary")
+    t_d = best_of(lambda: dictionary.compress_with_dict(inp6["records"], dct))
+    hold_captured(win_captured["dict"], "phase 4f dictionary")
+    t0 = time.perf_counter()
+    bad = [k for k, (f_, r_) in enumerate(zip(frames_d, inp6["records"]))
+           if dictionary.decompress_with_dict(f_, dct) != r_]
+    t_dd = time.perf_counter() - t0
+    if bad:
+        _fail(f"phase 4f: decompress_with_dict returned other bytes for {len(bad)} records")
+    nrec = sum(map(len, inp6["records"]))
+    print(f"phase 4f: train_dictionary(1024 records, 64 KB) == JAX golden ({t_train:.2f} s on "
+          f"the host); compress_with_dict of {len(frames_d)} records ({nrec} bytes) == JAX "
+          f"golden ({sum(map(len, frames_d))} bytes; launches {win_launches['dict']}; peak "
+          f"device memory {peak_d}); decompress_with_dict == every record ({t_dd:.2f} s on "
+          f"the host)")
+    print(f"time [{card}]: compress_with_dict of 256 records {t_d * 1e3:.3f} ms = "
+          f"{nrec / t_d / 1e6:.3f} MB/s of records (best of 2)")
+
+    # 5. A 1 MiB history (window_log 20): rows of 1 MiB + 128 KB searched
+    # whole; the second chunk repeats the history's first 64 KB at offset
+    # 2^20 and again past it (offsets beyond the 20-bit field, which the
+    # port leaves unmatched); decoded on the card.
+    rng6 = np.random.default_rng(620)
+    chunks20 = [data[: 1 << 20], data[:65536] + rng6.bytes(65536) + data[:65536]]
+    cfg20 = dataclasses.replace(CompressionConfig.from_level(3), window_log=20)
+    base = peak_base()
+    stream20, win_launches["history_1mib"], _ = drive(lambda: stream_run(cfg20, chunks20))
+    peak_20 = peak_gib(base)
+    t_20 = best_of(lambda: stream_run(cfg20, chunks20))
+    out20, l20d, _ = record([], lambda: decompress.decompress_batch_tpu([stream20]), True)
+    if out20 != [b"".join(chunks20)]:
+        _fail("phase 4f: the window_log-20 stream does not decode to its input on the card")
+    decodes(stream20, b"".join(chunks20), "the window_log-20 stream")
+    print(f"phase 4f: StreamingManager(window_log=20) over 1 MiB + 192 KB: {len(stream20)} "
+          f"bytes, decoded on the card == the input (K7 / K8 launches {l20d['decode_seq']} / "
+          f"{l20d['exec']}); launches {win_launches['history_1mib']}; peak device memory "
+          f"{peak_20} (8 rows of {(1 << 20) + N} positions)")
+    print(f"time [{card}]: StreamingManager(window_log=20), 2 chunks: {t_20 * 1e3:.3f} ms "
+          f"(best of 2)")
+    print(f"phase 4f: done ({time.perf_counter() - t4f:.1f} s)")
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -1870,6 +2145,7 @@ def main() -> int:
                     **({"queued_ms": q_ms} if q_ms is not None else {}),
                     "launches_slice1": launches1.get(name, 0),
                     "launches_level19": launches19.get(name, 0),
+                    "launches_windows": {p_: l_.get(name, 0) for p_, l_ in win_launches.items()},
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
                     **extra.get(name, {}),
                 }
@@ -1890,6 +2166,22 @@ def main() -> int:
         if name == "concat":
             print(f"kernel [{card}] concat: 2d2f9bf's K2 stage on the same operands: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in CONCAT_PARENT_MS.items()))
+    # K1, K2 and K3 on the largest input each window path of phase 4f gave
+    # them, beside the bound.
+    for p_, cap_ in win_captured.items():
+        for name in ("roll", "concat", "greedy"):
+            if not cap_[name]:
+                continue
+            key, (args, kw, n_calls) = max(
+                cap_[name].items(),
+                key=lambda kv: sum(nbytes(a) for a in kv[1][0] if torch.is_tensor(a)))
+            kern = K[name][0]
+            out = kern(*args, **kw)
+            b_ms, _ = bound(name, args, kw, out)
+            print(f"kernel [{card}] {name} {shape_of(name, key)} on the {p_} path "
+                  f"(x{n_calls} a call): {_time_ms(lambda: kern(*args, **kw), 20):.4f} ms, "
+                  f"bound {b_ms:.4f} ms")
+    del win_captured
     k8 = next(r for r in rows_out if r["name"] == "exec")
     k8["name"] = "exec_k8"
     rows_out.append({**k8, "name": "exec_k9", "replaces": K9_REPLACES})

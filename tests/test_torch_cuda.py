@@ -11,7 +11,9 @@ widths 1024, 8192, 16384 and 65536, K3 and K5 also on their hard inputs
 through its fused entry on the hard operands of concat_fused_hard, the
 multi-block decode plan on the golden multi-block frames
 (decompress_multiblock), `decompress_batch_tpu` on its seeded batch
-against the CPU's, K10 also on
+against the CPU's, the cross-block window paths against the CPU's (the
+window parse cases, `compress_items` with enable_ldm and with history, the
+streaming compressor, `compress_with_dict`), K10 also on
 the calls of opt_card_calls (its hard calls, OPT_HARD and OPT_HARD_WIDE:
 every row kind at 16397 x 1024, seg 1, 33, 1000 and 4096, cap 127 at mm
 32, mm = cap; OPT_FAST_WIDE, every row of which must take the fast path;
@@ -28,6 +30,7 @@ import pytest
 import torch
 import torch_cases
 
+from tpu_zstd_torch import dictionary
 from tpu_zstd_torch.api import config, decompress, manager
 from tpu_zstd_torch.corpus import make_corpus
 from tpu_zstd_torch.ops import (
@@ -106,6 +109,37 @@ def test_cuda_kernels_match_plain():
         items, opt_cfg, device="cpu")
     _check_decode_kernels(dev)
     _check_fused_route_kernels(dev)
+    _check_windows(dev)
+
+
+def _check_windows(dev):
+    """The window paths on the card equal the CPU's, on the seeded inputs
+    of the cases of group "windows"."""
+    for name in ("parse_dict", "parse_payload_only", "parse_sample_log", "parse_dec_min_ml"):
+        i = torch_cases.CASES[name].inputs()
+        DC = i["DC"]
+        blocks = _t(i["blocks"])
+        n = DC + _t(i["lengths"]).to(torch.int64)
+        ws = DC - _t(i["dlens"]).to(torch.int64)
+        for kw in i["kws"]:
+            got = lz77.parse_block(blocks.to(dev), n.to(dev), block_start=DC,
+                                   win_start=ws.to(dev), **kw)
+            got = type(got)(*(x.cpu() for x in got))
+            want = lz77.parse_block(blocks, n, block_start=DC, win_start=ws, **kw)
+            W = blocks.shape[1]
+            assert torch_cases.digest(torch_cases._opt_parse_digest(got, W)) == \
+                torch_cases.digest(torch_cases._opt_parse_digest(want, W)), (name, kw)
+    for name in ("items_ldm", "items_history_level3", "items_history_level19"):
+        i = torch_cases.CASES[name].inputs()
+        cfg = torch_cases._win_items_cfg(config, i)
+        assert manager.compress_items(i["items"], cfg, history=i["history"], device=dev) == \
+            manager.compress_items(i["items"], cfg, history=i["history"], device="cpu"), name
+    i = torch_cases.CASES["streaming_compress"].inputs()
+    assert torch_cases.digest(torch_cases._stream_compress_run(config, manager, i, device=dev)) \
+        == torch_cases.digest(torch_cases._stream_compress_run(config, manager, i, device="cpu"))
+    i = torch_cases.CASES["dict_frames"].inputs()
+    assert torch_cases._dict_frames_run(dictionary, config, i, device=dev) == \
+        torch_cases._dict_frames_run(dictionary, config, i, device="cpu")
 
 
 def _check_concat_fused(dev):

@@ -68,7 +68,9 @@ TOPICS = {
                                  "encode_predefined", "find_matches_wide", "find_matches_whole",
                                  "find_matches_fused_two_band",
                                  "find_matches_long", "parse_optimal", "parse_optimal_overflow",
-                                 "find_matches_fused"],
+                                 "find_matches_fused", "find_matches_win_start",
+                                 "find_matches_long_win_start", "parse_dict",
+                                 "parse_payload_only", "parse_sample_log", "parse_dec_min_ml"],
     "slice1_frames": ["frame_slice1_8k", "frame_slice1_16k"],
     "fse_tables": ["normalize_64", "ncount_fields", "build_cf_tables", "choose_tables_ll",
                    "choose_tables_of", "choose_tables_ml", "format_decode"],
@@ -84,7 +86,9 @@ TOPICS = {
                        "decompress_batch_tpu", "streaming_decode"],
     "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64",
                      "items_level7", "items_level12", "items_level19", "items_level22",
-                     "frame_whole_block", "host_compress", "manager_surface"],
+                     "frame_whole_block", "host_compress", "manager_surface", "items_ldm",
+                     "items_history_level3", "items_history_level19", "streaming_compress",
+                     "train_dictionary", "dict_frames", "items_rung_edge"],
 }
 
 
@@ -100,16 +104,22 @@ def golden():
 
 def _check_case(name, golden):
     """The port's digest for case `name` equals the recorded one, and stock
-    libzstd decodes every frame it returns to its input."""
+    libzstd decodes every frame it returns to its input (with the case's
+    raw-content dictionary, `zstd_dict` for every frame or `zstd_dicts`
+    one a frame, where it has one)."""
     c = torch_cases.CASES[name]
     inputs = c.inputs()
     out = c.port(inputs)
     assert torch_cases.digest(out) == golden[name], "differs from the recorded JAX output"
     datas = inputs.get("items") or ([inputs["data"]] if "data" in inputs else [])
-    frames = [v for _, v in sorted(out.items()) if isinstance(v, bytes)]
+    # frame0, frame1, ..., frame10: the frames in item order.
+    frames = [v for _, v in sorted(out.items(), key=lambda kv: (len(kv[0]), kv[0]))
+              if isinstance(v, bytes)]
     assert len(frames) == len(datas)
-    dctx = zstandard.ZstdDecompressor()
-    for frame, data in zip(frames, datas):
+    dicts = inputs.get("zstd_dicts") or [inputs.get("zstd_dict")] * len(frames)
+    for frame, data, dct in zip(frames, datas, dicts):
+        dctx = zstandard.ZstdDecompressor(dict_data=zstandard.ZstdCompressionDict(
+            dct, dict_type=zstandard.DICT_TYPE_RAWCONTENT) if dct else None)
         assert dctx.decompress(frame, max_output_size=max(len(data), 1)) == data
 
 

@@ -3,10 +3,12 @@
 against `compress_items_tpu` at levels 1, 3 and 5 with and without checksum
 (and the seeded cases of tests/torch_cases.py, group "manager"),
 `BatchManager.compress_batch` frames and stats, the content checksum, the
-decode_accel pipeline mapping for every level 1-22, and the settings that
-belong to later slices (enable_ldm, dict_id, streaming history). Every port frame is decoded by
-stock libzstd (`zstandard`). Exact equality. One test item (see
-tests/test_torch_kernels.py).
+decode_accel pipeline mapping for every level 1-22, and the window settings
+(enable_ldm, dict_id, streaming history), which run on the CPU when asked
+for it and need a card otherwise. Every port frame is decoded by stock
+libzstd (`zstandard`; a frame with a dictionary ID by the port's host
+decoder, since libzstd refuses an ID that no loaded dictionary carries).
+Exact equality. One test item (see tests/test_torch_kernels.py).
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ from tpu_zstd.api import manager as jm
 from tpu_zstd_torch.api import config as tc
 from tpu_zstd_torch.api import manager as tm
 from tpu_zstd_torch.corpus import make_corpus
+from tpu_zstd_torch.format import frame as tframe
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -49,21 +52,34 @@ def _check_config_copy_and_level_table():
 
 
 def _check_later_slices_raise():
-    base = tc.CompressionConfig.from_level(3)
-    for change in ({"enable_ldm": True}, {"dict_id": 7}):
-        with pytest.raises(NotImplementedError):
-            tm.compress_items([b"abc"], dataclasses.replace(base, **change), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.compress_items([b"abc"], base, history=[b""], device="cpu")
-    for level in (7, 19):  # levels 7-22 run since the optimal-parse slice
-        with pytest.raises(NotImplementedError):
-            tm.BatchManager(config=dataclasses.replace(
-                tc.CompressionConfig.from_level(level), enable_ldm=True), device="cpu")
+    """Since the cross-block slice enable_ldm, dict_id and history run (the
+    seeded cases of group "windows" hold their bytes against the JAX
+    package); without a card every entry point raises unless asked for
+    the CPU."""
+    base = dataclasses.replace(tc.CompressionConfig.from_level(3), block_size=16384)
+    data = make_corpus(40000)
+    dctx = zstandard.ZstdDecompressor()
+    f_ldm, = tm.compress_items([data], dataclasses.replace(base, enable_ldm=True), device="cpu")
+    assert dctx.decompress(f_ldm, max_output_size=len(data)) == data
+    f_id, = tm.compress_items([data], dataclasses.replace(base, dict_id=7), device="cpu")
+    assert tframe.parse_frame_header(f_id).dict_id == 7
+    assert tframe.decompress(f_id) == data
+    f_h, = tm.compress_items([data[20000:]], base, history=[data[:20000]], device="cpu")
+    zd = zstandard.ZstdCompressionDict(data[:20000], dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+    assert zstandard.ZstdDecompressor(dict_data=zd).decompress(
+        f_h, max_output_size=20000) == data[20000:]
+    for level in (7, 19):
+        tm.BatchManager(config=dataclasses.replace(
+            tc.CompressionConfig.from_level(level), enable_ldm=True), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tm.BatchManager(level=3)  # device=None means CUDA
         with pytest.raises(RuntimeError):
             tm.compress_items([b"abc"], base)
+        with pytest.raises(RuntimeError):
+            tm.compress_items([b"abc"], base, history=[b""])
+        with pytest.raises(RuntimeError):
+            tm.StreamingManager(level=3)
 
 
 def _check_batch_manager_matches_jax():

@@ -10,8 +10,9 @@ extraction span the whole block) run through both packages and are held
 against tests/golden/torch_cases.json; stock libzstd (`zstandard`) decodes
 every frame. Then the full level-19 configuration through the port's
 `BatchManager` on the CPU, where every kernel wrapper (K10's too) takes its
-plain version, decoded by libzstd. Exact equality. One test item (see
-tests/test_torch_kernels.py).
+plain version, decoded by libzstd, and the window settings at level 19
+(enable_ldm, a dictionary ID, history), which run since the cross-block
+slice. Exact equality. One test item (see tests/test_torch_kernels.py).
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ import zstandard
 from tpu_zstd_torch.api import config as tc
 from tpu_zstd_torch.api import manager as tm
 from tpu_zstd_torch.corpus import make_corpus
+from tpu_zstd_torch.format import frame as tframe
 from tpu_zstd_torch.ops import _kernels
 
 
@@ -57,12 +59,21 @@ def _check_level19_on_cpu(dctx):
 
 
 def _check_later_slices_raise():
-    cfg = tc.CompressionConfig.from_level(19)
-    for change in ({"enable_ldm": True}, {"dict_id": 7}):
-        with pytest.raises(NotImplementedError):
-            tm.compress_items([b"abc"], dataclasses.replace(cfg, **change), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.compress_items([b"abc"], cfg, history=[b""], device="cpu")
+    """enable_ldm, a dictionary ID and history at level 19 (16 KB blocks,
+    the search trimmed) run on the CPU; their frames decode (the history
+    frame with its history as a raw-content dictionary, the frame with a
+    dictionary ID on the port's host decoder)."""
+    cfg = torch_cases._opt_level_cfg(tc, 19)
+    data = make_corpus(40000)
+    dctx = zstandard.ZstdDecompressor()
+    f_ldm, = tm.compress_items([data], dataclasses.replace(cfg, enable_ldm=True), device="cpu")
+    assert dctx.decompress(f_ldm, max_output_size=len(data)) == data
+    f_id, = tm.compress_items([data], dataclasses.replace(cfg, dict_id=7), device="cpu")
+    assert tframe.parse_frame_header(f_id).dict_id == 7 and tframe.decompress(f_id) == data
+    f_h, = tm.compress_items([data[20000:]], cfg, history=[data[:20000]], device="cpu")
+    zd = zstandard.ZstdCompressionDict(data[:20000], dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+    assert zstandard.ZstdDecompressor(dict_data=zd).decompress(
+        f_h, max_output_size=20000) == data[20000:]
 
 
 def test_optimal_parse_matches_jax():

@@ -103,19 +103,31 @@ def _check_config_from_reference():
         tp.config_from_reference({**dataclasses.asdict(ref), "no_such_field": 1})
 
 
-UNSUPPORTED = [
-    {"dict_cap": 4096}, {"ldm_window": True}, {"ckpt_every": 64}, {"sample_log": 1},
-    {"dec_min_ml": 8}, {"min_match": 5},
-]
+# Still refused: min_match other than 3 or 4, and decode checkpoints without
+# custom FSE tables (where the reference returns a tuple its manager cannot
+# use). The window settings run since the cross-block slice.
+UNSUPPORTED = [{"ckpt_every": 64}, {"min_match": 5}]
+WINDOW_SETTINGS = [{"dict_cap": 4096}, {"ldm_window": True}, {"sample_log": 1},
+                   {"dec_min_ml": 8}]
 
 
-def _check_unsupported_requests_raise():
+def _check_unsupported_requests_raise(dctx):
     ref = jp.PipelineConfig(huffman_literals=False, custom_fse=False)
     for change in UNSUPPORTED:
         with pytest.raises(NotImplementedError):
             tp.config_from_reference({**dataclasses.asdict(ref), **change})
         with pytest.raises(NotImplementedError):
             tp.compress(b"abc" * 100, dataclasses.replace(tp.SLICE_CONFIG, **change), device="cpu")
+    data = corpus.make_corpus(20000)
+    for change in WINDOW_SETTINGS:
+        cfg = tp.config_from_reference({**dataclasses.asdict(ref), **change})
+        assert cfg == dataclasses.replace(tp.SLICE_CONFIG, **change)
+        if "dict_cap" in change:  # rows need their window prefix: compress_blocks_dict
+            with pytest.raises(ValueError):
+                tp.compress(data, cfg, device="cpu")
+            continue
+        frame = tp.compress(data, cfg, device="cpu")
+        assert dctx.decompress(frame, max_output_size=len(data)) == data, change
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tp.compress(b"abc")  # device=None means CUDA
@@ -178,7 +190,7 @@ def _check_port_imports_no_jax_and_no_reference_package():
         "format/xxhash", "api/config", "api/manager", "ops/decode", "ops/decode_lanes",
         "ops/exec", "api/decompress", "format/accel", "format/bitstream", "format/huffman",
         "format/sequences", "format/frame", "format/fse", "format/lz77", "ops/opt", "ops/sort",
-        "ops/match", "ops/deposit")} <= rel
+        "ops/match", "ops/deposit", "dictionary")} <= rel
     for f in files:
         banned = ("jax", "jaxlib", "tpu_zstd") + (("zstandard",) if f.parent != ROOT else ())
         for mod in _imported_modules(f):
@@ -193,7 +205,7 @@ def test_port_end_to_end(corpus):
         _check_compress_frames_identical_to_jax(corpus, dctx, bs)
     _check_staged_many_matches_staged()
     _check_config_from_reference()
-    _check_unsupported_requests_raise()
+    _check_unsupported_requests_raise(dctx)
     _check_empty_input_frame(dctx)
     _check_corpus_copy_equals_bench()
     _check_golden_files()

@@ -3386,3 +3386,445 @@ def _manager_ref(i):
 
 
 case("manager_surface", "api", _manager_inputs, _manager_port, _manager_ref)
+
+
+# --- Slice 6: cross-block windows, dictionaries, sample_log, dec_min_ml -------------
+
+WIN_DC, WIN_N = 4096, 8192  # window prefix and payload of the parse cases
+WIN_FM_KW = (dict(hash_log=13, depth=4, cap=8, mf_win_log=12),
+             dict(hash_log=13, depth=4, cap=16, mf_win_log=0, min_match=3, two_band=True))
+
+
+def _win_rows(DC, N, seed):
+    """Rows (DC + N) laid out [padding | dlen window bytes | payload]: corpus
+    text continuing its window, a seeded mix whose payload repeats pieces
+    of its window, random bytes with no window, a short payload with a
+    full window and an empty one. Returns blocks, payload lengths, dlens."""
+    rng = np.random.default_rng(seed)
+    text = make_corpus(DC + N)
+    mix = rng.integers(0, 256, DC + N, dtype=np.uint8)
+    for _ in range(N // 64):
+        ln = int(rng.integers(3, 200))
+        src = int(rng.integers(0, DC + N - ln))
+        dst = int(rng.integers(DC, DC + N - ln))
+        mix[dst:dst + ln] = mix[src:src + ln]
+    spec = [(text, DC, N), (mix.tobytes(), DC - 1000, N - 5), (rng.bytes(DC + N), 0, N),
+            (text[::-1], DC, 1500), (text, 777, 0)]
+    spec = [(src, min(dlen, DC), n) for src, dlen, n in spec]
+    blocks = np.zeros((len(spec), DC + N), np.uint8)
+    for k, (src, dlen, n) in enumerate(spec):
+        row = np.frombuffer(src, np.uint8)
+        blocks[k, DC - dlen : DC + n] = row[DC - dlen : DC + n]
+    return {"blocks": blocks, "lengths": np.array([s[2] for s in spec], np.int32),
+            "dlens": np.array([s[1] for s in spec], np.int32)}
+
+
+def _fm_win_inputs():
+    return {**_win_rows(WIN_DC, WIN_N, 61), "kws": WIN_FM_KW}
+
+
+def _fm_win_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    ws = WIN_DC - _t(i["dlens"]).to(torch.int64)
+    n = WIN_DC + _t(i["lengths"]).to(torch.int64)
+    return {f"c{c}_out{k}": v for c, kw in enumerate(i["kws"])
+            for k, v in enumerate(lz77.find_matches(_t(i["blocks"]), n, win_start=ws, **kw))}
+
+
+def _fm_win_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    out = {}
+    for c, kw in enumerate(i["kws"]):
+        res = jax.jit(jax.vmap(lambda b, n, d, kw=kw: lz77_jax.find_matches(
+            b, WIN_DC + n, win_start=WIN_DC - d, **kw)))(
+            jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]), jnp.asarray(i["dlens"]))
+        out.update({f"c{c}_out{k}": np.asarray(v) for k, v in enumerate(res)})
+    return out
+
+
+case("find_matches_win_start", "windows", _fm_win_inputs, _fm_win_port, _fm_win_ref)
+
+
+def _fml_win_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    ml, off = lz77.find_matches_long(_t(i["blocks"]), WIN_DC + _t(i["lengths"]).to(torch.int64),
+                                     win_start=WIN_DC - _t(i["dlens"]).to(torch.int64))
+    return {"ml": ml, "off": off}
+
+
+def _fml_win_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    ml, off = jax.jit(jax.vmap(lambda b, n, d: lz77_jax.find_matches_long(
+        b, WIN_DC + n, win_start=WIN_DC - d)))(
+        jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]), jnp.asarray(i["dlens"]))
+    return {"ml": np.asarray(ml), "off": np.asarray(off)}
+
+
+case("find_matches_long_win_start", "windows", lambda: _win_rows(WIN_DC, WIN_N, 62),
+     _fml_win_port, _fml_win_ref)
+
+# Parse calls over window rows: the dictionary mode (the search over the
+# whole row; min_match 3 with a capacity some rows overflow), the
+# payload-only mode (LDM with windows that tile the payload), sampled
+# positions (the packed restore key, and the 20-bit fallback at 16 KB
+# windows), and the decode-tuned minimum length.
+WIN_PARSE = {
+    "parse_dict": ((WIN_DC, WIN_N, 63), (
+        dict(max_seqs=WIN_N // 4, hash_log=13, depth=4, cap=8, min_match=4, lazy=True,
+             of_gate=(8, 12), mf_win_log=0),
+        dict(max_seqs=700, hash_log=13, depth=4, cap=16, min_match=3, lazy=True,
+             of_gate=(99, 99), mf_win_log=0))),
+    "parse_payload_only": ((8192, 8192, 64), (
+        dict(max_seqs=2048, hash_log=13, depth=4, cap=16, min_match=4, lazy=True,
+             of_gate=(8, 12), mf_win_log=12, ldm=True),
+        dict(max_seqs=2048, hash_log=13, depth=4, cap=16, min_match=3, optimal=True,
+             mf_win_log=12, ldm=True))),
+    "parse_sample_log": ((0, 16384, 65), (
+        dict(max_seqs=4096, hash_log=13, depth=4, cap=8, min_match=4, lazy=True,
+             of_gate=(8, 12), mf_win_log=12, sample_log=2),
+        dict(max_seqs=4096, hash_log=13, depth=4, cap=32, min_match=4, lazy=False,
+             mf_win_log=13, sample_log=1))),
+    "parse_dec_min_ml": ((0, 16384, 66), (
+        dict(max_seqs=4096, hash_log=13, depth=4, cap=16, min_match=4, lazy=True,
+             of_gate=(8, 12), mf_win_log=12, dec_min_ml=8),)),
+}
+
+
+def _win_parse_inputs(name):
+    def make():
+        (DC, N, seed), kws = WIN_PARSE[name]
+        return {**_win_rows(DC, N, seed), "DC": DC, "kws": kws}
+
+    return make
+
+
+def _win_parse_digest(seqs, c, W):
+    return {f"c{c}_{k}": v for k, v in _opt_parse_digest(seqs, W).items()}
+
+
+def _win_parse_port(i):
+    from tpu_zstd_torch.ops import lz77
+
+    DC = i["DC"]
+    blocks = _t(i["blocks"])
+    n = DC + _t(i["lengths"]).to(torch.int64)
+    ws = DC - _t(i["dlens"]).to(torch.int64)
+    out = {}
+    for c, kw in enumerate(i["kws"]):
+        seqs = lz77.parse_block(blocks, n, block_start=DC, win_start=ws, **kw)
+        out.update(_win_parse_digest(seqs, c, blocks.shape[1]))
+    return out
+
+
+def _win_parse_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.ops import lz77_jax
+
+    DC = i["DC"]
+    out = {}
+    for c, kw in enumerate(i["kws"]):
+        seqs = jax.jit(jax.vmap(lambda b, n, d, kw=kw: lz77_jax.parse_block(
+            b, DC + n, block_start=DC, win_start=DC - d, **kw)))(
+            jnp.asarray(i["blocks"]), jnp.asarray(i["lengths"]), jnp.asarray(i["dlens"]))
+        out.update(_win_parse_digest(jax.device_get(seqs), c, i["blocks"].shape[1]))
+    return out
+
+
+for _name in WIN_PARSE:
+    case(_name, "windows", _win_parse_inputs(_name), _win_parse_port, _win_parse_ref)
+
+
+def _win_items_inputs(level, history):
+    """Items at 16 KB blocks for compress_items' window modes: corpus text
+    over several blocks, a seeded mix whose later blocks repeat its first
+    one, an empty item and a run of one byte; with history, each item's
+    prior stream content (`zstd_dicts`: libzstd decodes each frame with it
+    as a raw-content dictionary). Without history, also the frame of the
+    first item's first 3000 bytes with dictionary IDs of 1, 2 and 4 bytes
+    (the header's only change; libzstd refuses an ID that no loaded
+    dictionary carries, so these are compared as bytes only)."""
+    def make():
+        rng = np.random.default_rng(70 + level)
+        first = rng.bytes(9000)
+        items = [make_corpus(30000), first + rng.bytes(5000) + first + make_corpus(9000),
+                 b"", b"\x09" * 20000]
+        out = {"level": level, "items": items, "history": None}
+        if not history:
+            out["dict_ids"] = (0x12, 0x1234, 0x12345678)
+        if history:
+            out["history"] = [make_corpus(90000)[-30000:], first[::-1] * 3, b"abc", b""]
+            out["zstd_dicts"] = out["history"]
+        return out
+
+    return make
+
+
+def _win_items_cfg(config, i):
+    """Windows of 16 KB (window_log 14): enable_ldm without history; level 3
+    and level 19 (trimmed, `_opt_level_cfg`) with it, level 19 with a
+    checksum."""
+    if i["history"] is None:
+        return dataclasses.replace(config.CompressionConfig.from_level(i["level"]),
+                                   block_size=16384, enable_ldm=True, window_log=14)
+    if i["level"] == 3:
+        return dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
+                                   window_log=14)
+    return dataclasses.replace(_opt_level_cfg(config, i["level"]), window_log=14,
+                               checksum=config.ChecksumPolicy.COMPUTE)
+
+
+def _win_items_run(config, compress, i):
+    cfg = _win_items_cfg(config, i)
+    out = {f"frame{k}": f for k, f in enumerate(compress(i["items"], cfg, i["history"]))}
+    for did in i.get("dict_ids", ()):
+        f, = compress([i["items"][0][:3000]], dataclasses.replace(cfg, dict_id=did), None)
+        out[f"dict_id_{did:x}"] = _u8(f)
+    return out
+
+
+def _win_items_port(i):
+    from tpu_zstd_torch.api import config, manager
+
+    return _win_items_run(config, lambda it, c, h: manager.compress_items(
+        it, c, history=h, device="cpu"), i)
+
+
+def _win_items_ref(i):
+    from tpu_zstd.api import config, manager
+
+    return _win_items_run(config, lambda it, c, h: manager.compress_items_tpu(
+        it, c, history=h), i)
+
+
+case("items_ldm", "windows", _win_items_inputs(3, False), _win_items_port, _win_items_ref)
+for _level in (3, 19):
+    case(f"items_history_level{_level}", "windows", _win_items_inputs(_level, True),
+         _win_items_port, _win_items_ref)
+
+# StreamingManager at 16 KB blocks: with window history (chunks of 12000,
+# 1, 0 and 25000 bytes, the last repeating the first), a checksum and
+# window_log 14 (a 16 KB history), decoded again by the manager's
+# decompress half; and without history. Then each compress half is reset
+# and reused.
+STREAM_RUNS = ((True, 1, 14), (False, 0, None))
+
+
+def _stream_compress_inputs():
+    rng = np.random.default_rng(71)
+    first = make_corpus(12000)
+    chunks = [first, b"Z", b"", rng.bytes(5000) + first + make_corpus(40000)[-8000:]]
+    data = b"".join(chunks)
+    return {"chunks": chunks, "items": [data] * len(STREAM_RUNS), "runs": STREAM_RUNS}
+
+
+def _stream_compress_run(config, manager, i, **kw):
+    out = {}
+    for k, (hist, ck, wl) in enumerate(i["runs"]):
+        cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
+                                  checksum=config.ChecksumPolicy(ck), window_log=wl)
+        sm = manager.StreamingManager(config=cfg, window_history=hist, **kw)
+        stream = b"".join(sm.compress_chunk(c) for c in i["chunks"]) + sm.flush()
+        out[f"frame{k}"] = stream
+        out[f"flush_again{k}"] = _u8(sm.flush())
+        if hist:
+            back = b"".join(sm.decompress_chunk(stream[p : p + 5000])
+                            for p in range(0, len(stream), 5000)) + sm.decompress_flush()
+            out[f"decoded{k}"] = _u8(back)
+        out[f"stats{k}"] = [sm.stats.total_input_bytes, sm.stats.total_output_bytes]
+        sm.reset()
+        out[f"after_reset{k}"] = _u8(sm.compress_chunk(i["chunks"][0][:3000]) + sm.flush())
+    return out
+
+
+def _stream_compress_port(i):
+    from tpu_zstd_torch.api import config, manager
+
+    return _stream_compress_run(config, manager, i, device="cpu")
+
+
+def _stream_compress_ref(i):
+    from tpu_zstd.api import config, manager
+
+    return _stream_compress_run(config, manager, i)
+
+
+case("streaming_compress", "windows", _stream_compress_inputs, _stream_compress_port,
+     _stream_compress_ref)
+
+
+def dict_records(seed: int, count: int, corpus_bytes: int = 1 << 20) -> list[bytes]:
+    """count records of 256-4096 bytes cut from make_corpus at seeded
+    offsets and lengths."""
+    rng = np.random.default_rng(seed)
+    base = make_corpus(corpus_bytes)
+    lens = rng.integers(256, 4097, count)
+    starts = rng.integers(0, len(base) - 4096, count)
+    return [base[s : s + n] for s, n in zip(starts, lens)]
+
+
+# tools/make_torch_goldens.py slice6 and chip_smoke.py phase 4f: the bench
+# corpus as items of 1 MiB, a 64 KB history and the 8 blocks after it, and
+# records for training and compressing against a 64 KB dictionary.
+SLICE6_ITEM = 1 << 20
+SLICE6_HISTORY = 64 * 1024
+SLICE6_RECORDS = (74, 1024, 256)  # seed, training records, records compressed
+
+
+def slice6_inputs(data: bytes, N: int) -> dict:
+    seed, ntrain, ncomp = SLICE6_RECORDS
+    recs = dict_records(seed, ntrain + ncomp, len(data))
+    return {"items": [data[k : k + SLICE6_ITEM] for k in range(0, len(data), SLICE6_ITEM)],
+            "history": data[:SLICE6_HISTORY],
+            "item19": data[SLICE6_HISTORY : SLICE6_HISTORY + 8 * N],
+            "train": recs[:ntrain], "records": recs[ntrain:]}
+
+
+def _train_inputs():
+    return {"samples": dict_records(72, 96, 1 << 18), "sizes": (256, 4096, 20000)}
+
+
+def _train_run(dictionary, i):
+    out = {}
+    for k, size in enumerate(i["sizes"]):
+        d = dictionary.train_dictionary(i["samples"], dict_size=size)
+        env = dictionary.write_structured_dictionary(d)
+        back = dictionary.read_dictionary(env)
+        out[f"content{k}"] = _u8(d.content)
+        out[f"id{k}"] = [d.dict_id, back.dict_id, len(d), int(back.content == d.content)]
+        out[f"envelope{k}"] = _u8(env)
+    raw = dictionary.read_dictionary(b"raw bytes")
+    out["raw"] = [raw.dict_id, len(raw)]
+    out["few"] = _u8(dictionary.train_dictionary([b"tiny"], dict_size=300).content)
+    out["dmer"] = dictionary._dmer_counts(np.frombuffer(i["samples"][0], np.uint8), 8)
+    return out
+
+
+def _train_port(i):
+    from tpu_zstd_torch import dictionary
+
+    return _train_run(dictionary, i)
+
+
+def _train_ref(i):
+    from tpu_zstd import dictionary
+
+    return _train_run(dictionary, i)
+
+
+case("train_dictionary", "windows", _train_inputs, _train_port, _train_ref)
+
+
+def _dict_frames_inputs():
+    """Records against a 3000-byte dictionary trained on other records
+    (dict_cap 4096), at 16 KB blocks: `zstd_dict` is the content libzstd
+    decodes the frames with, as a raw-content dictionary."""
+    from tpu_zstd_torch import dictionary
+
+    recs = dict_records(73, 60, 1 << 18)
+    d = dictionary.train_dictionary(recs[:44], dict_size=3000)
+    items = recs[44:] + [b"", b"\x05" * 5000, make_corpus(40000)[-20000:]]
+    return {"items": items, "content": d.content, "dict_id": d.dict_id, "zstd_dict": d.content}
+
+
+def _dict_frames_run(dictionary, config, i, **kw):
+    d = dictionary.Dictionary(i["content"], i["dict_id"])
+    cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384)
+    frames = dictionary.compress_with_dict(i["items"], d, cfg, **kw)
+    return {**{f"frame{k}": f for k, f in enumerate(frames)},
+            "decoded": [int(dictionary.decompress_with_dict(f, d) == x)
+                        for f, x in zip(frames, i["items"])]}
+
+
+def _dict_frames_port(i):
+    from tpu_zstd_torch import dictionary
+    from tpu_zstd_torch.api import config
+
+    return _dict_frames_run(dictionary, config, i, device="cpu")
+
+
+def _dict_frames_ref(i):
+    from tpu_zstd import dictionary
+    from tpu_zstd.api import config
+
+    return _dict_frames_run(dictionary, config, i)
+
+
+case("dict_frames", "windows", _dict_frames_inputs, _dict_frames_port, _dict_frames_ref)
+
+
+def rung_payload(M: int, seed: int, N: int = 16384) -> bytes:
+    """Random bytes with 6-byte copies from up to 4000 bytes back at M
+    positions 7 bytes apart: about M sequences at level 3."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, N, dtype=np.uint8)
+    for p in np.sort(rng.choice(np.arange(5, (N - 8) // 7), M, replace=False)) * 7:
+        src = int(rng.integers(max(0, p - 4000), p - 16))
+        a[p : p + 6] = a[src : src + 6]
+    return a.tobytes()
+
+
+def _rung_inputs():
+    """Two single-block items behind a 100-byte history (16 KB blocks and
+    window: a sequence width of 4096, rungs 2048 and 4096) whose blocks
+    parse into 2048 and 2049 sequences, the last max(nseq) of the first rung
+    and the first of the second; the parse's nseq is part of the digest."""
+    hist = b"h" * 100
+    return {"items": [rung_payload(2051, 81), rung_payload(2052, 81)], "hist": hist,
+            "zstd_dicts": [hist, hist]}
+
+
+def _rung_rows(i, DC):
+    rows = np.zeros((8, DC + 16384), np.uint8)
+    rows[:, DC - len(i["hist"]) : DC] = np.frombuffer(i["hist"], np.uint8)
+    rows[:2, DC:] = [np.frombuffer(d, np.uint8) for d in i["items"]]
+    return rows, np.array([16384] * 2 + [0] * 6, np.int32), np.full(8, len(i["hist"]), np.int32)
+
+
+def _rung_run(config, pipeline_config, compress, parse, i):
+    cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
+                              window_log=14)
+    out = {f"frame{k}": compress([d], cfg, [i["hist"]])[0] for k, d in enumerate(i["items"])}
+    pcfg = dataclasses.replace(pipeline_config(cfg), dict_cap=16384)
+    out["nseq"] = parse(pcfg, *_rung_rows(i, 16384))
+    return out
+
+
+def _rung_port(i):
+    from tpu_zstd_torch.api import config, manager
+    from tpu_zstd_torch.ops import pipeline
+
+    def parse(pcfg, rows, lens, dlens):
+        return pipeline._parse_one(_t(rows), _t(lens), pcfg, _t(dlens)).nseq
+
+    return _rung_run(config, manager._pipeline_config, lambda it, c, h: manager.compress_items(
+        it, c, history=h, device="cpu"), parse, i)
+
+
+def _rung_ref(i):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_zstd.api import config, manager
+    from tpu_zstd.ops import pipeline
+
+    def parse(pcfg, rows, lens, dlens):
+        return np.asarray(jax.jit(jax.vmap(lambda b, l, d: pipeline._parse_one(b, l, pcfg, d)))(
+            jnp.asarray(rows), jnp.asarray(lens), jnp.asarray(dlens)).nseq)
+
+    return _rung_run(config, manager._pipeline_config, lambda it, c, h: manager.compress_items_tpu(
+        it, c, history=h), parse, i)
+
+
+case("items_rung_edge", "windows", _rung_inputs, _rung_port, _rung_ref)

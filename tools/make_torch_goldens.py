@@ -37,10 +37,21 @@ before anything is written. Targets (default: slice2 cases):
   frame: the bench batch make_corpus(128 * 131072) as ONE item through
   `compress_items_tpu` at level 3 (a frame of 128 blocks whose header
   declares a 16 MiB window), its length and sha256 and the header's window
-  and content sizes.
+  and content sizes;
+- slice6 -> tests/golden/torch_slice6.json, the cross-block windows on the
+  bench corpus make_corpus(128 * 131072): `compress_items_tpu` with
+  enable_ldm over 16 items of 1 MiB (level 3; 128 rows of a 64 KB window
+  and a 128 KB block); `StreamingManager(level=3)` over the corpus in 16
+  chunks of 1 MiB (the default 64 KB history); `compress_items_tpu` at
+  level 19 of the 8 blocks after the corpus's first 64 KB, with those 64 KB
+  as history; `train_dictionary` (64 KB) on 1024 records of 256-4096 bytes
+  (tests/torch_cases.py `dict_records`) and `compress_with_dict` of 256
+  other records (level 3). Each frame's length and sha256, the
+  dictionary's too; libzstd decodes every frame first (the history frame
+  and the dictionary frames with their raw-content dictionary).
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4]
-        [slice5] [multiblock] [cases]
+        [slice5] [slice6] [multiblock] [cases]
 
 About 4 minutes for slice1, 7 for slice2, slice3 and slice5, 13 for slice4
 (on 8 cores) and 10 for cases on the CPU. Give slice1-slice5 a fresh process (or
@@ -298,6 +309,65 @@ def slice5() -> None:
     _write("torch_slice5.json", doc)
 
 
+def _frames_doc(frames) -> list:
+    return [{"len": len(f), "sha256": _sha(f)} for f in frames]
+
+
+def _decodes_with(frame: bytes, data: bytes, dict_content: bytes, what: str) -> None:
+    zd = zstandard.ZstdCompressionDict(dict_content, dict_type=zstandard.DICT_TYPE_RAWCONTENT)
+    got = zstandard.ZstdDecompressor(dict_data=zd).decompress(frame,
+                                                              max_output_size=max(len(data), 1))
+    if got != data:
+        raise SystemExit(f"libzstd failed to decode {what}")
+
+
+def slice6() -> None:
+    from tpu_zstd import dictionary
+    from tpu_zstd.api.manager import StreamingManager
+
+    import torch_cases
+
+    N = DEFAULT_CONFIG.block_size
+    data = make_corpus(BATCH_BLOCKS * N)
+    inp = torch_cases.slice6_inputs(data, N)
+    doc = {"corpus": f"make_corpus({BATCH_BLOCKS} * {N})", "item": torch_cases.SLICE6_ITEM}
+
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(CompressionConfig.from_level(3), enable_ldm=True)
+    frames = compress_items_tpu(inp["items"], ccfg)
+    for f, d in zip(frames, inp["items"]):
+        _decodes(f, d, "an enable_ldm item frame")
+    doc["ldm_items"] = {"level": 3, "enable_ldm": True, "frames": _frames_doc(frames)}
+    print(f"  ldm items: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    sm = StreamingManager(level=3)
+    stream = b"".join(sm.compress_chunk(c) for c in inp["items"]) + sm.flush()
+    _decodes(stream, data, "the level-3 stream")
+    doc["stream"] = {"level": 3, "chunks": len(inp["items"]), "len": len(stream),
+                     "sha256": _sha(stream)}
+    print(f"  stream: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    f19, = compress_items_tpu([inp["item19"]], CompressionConfig.from_level(19),
+                              history=[inp["history"]])
+    _decodes_with(f19, inp["item19"], inp["history"], "the level-19 history frame")
+    doc["history19"] = {"level": 19, "history": torch_cases.SLICE6_HISTORY, "len": len(f19),
+                        "sha256": _sha(f19)}
+    print(f"  level-19 history frame: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    d = dictionary.train_dictionary(inp["train"], dict_size=64 * 1024)
+    frames = dictionary.compress_with_dict(inp["records"], d)
+    for f, r in zip(frames, inp["records"]):
+        _decodes_with(f, r, d.content, "a dictionary frame")
+    doc["dictionary"] = {"records": torch_cases.SLICE6_RECORDS, "dict_size": 64 * 1024,
+                         "content_len": len(d.content), "content_sha256": _sha(d.content),
+                         "dict_id": d.dict_id, "frames": _frames_doc(frames)}
+    print(f"  dictionary: {time.perf_counter() - t0:.1f} s", flush=True)
+    _write("torch_slice6.json", doc)
+
+
 def _cases_group(group: str) -> None:
     """Print the JSON digests of one group's cases as the last stdout line."""
     import torch_cases
@@ -353,7 +423,7 @@ def multiblock() -> None:
 
 
 TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "slice4": slice4,
-           "slice5": slice5, "multiblock": multiblock, "cases": cases}
+           "slice5": slice5, "slice6": slice6, "multiblock": multiblock, "cases": cases}
 
 
 def main(argv: list[str]) -> None:

@@ -11,6 +11,7 @@ Module map:
   tpu_zstd_torch.format  host-side RFC 8878 codec (numpy, pure Python)
   tpu_zstd_torch.ops     the device pipeline (torch ops and the CUDA kernels)
   tpu_zstd_torch.api     managers, decoders, configuration, status codes
+  tpu_zstd_torch.dictionary  dictionary training, compression against one
 
 The one-shot functions below route as the reference's do: `compress` and
 `decompress` through `Manager` (inputs under 1 MiB compress on the host,
@@ -35,11 +36,21 @@ from .api import (
     Status,
     Strategy,
     StreamingDecompressor,
+    StreamingManager,
     compress_items,
     decompress_batch_to_device,
     decompress_batch_tpu,
     estimate_compressed_size,
     prepare_decompress_batch,
+)
+from .dictionary import (
+    CoverParams,
+    Dictionary,
+    compress_with_dict,
+    decompress_with_dict,
+    read_dictionary,
+    train_dictionary,
+    write_structured_dictionary,
 )
 
 __version__ = "0.1.0"

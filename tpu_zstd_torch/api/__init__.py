@@ -1,6 +1,6 @@
 """User-facing surface of the port: configuration, status codes, the
-managers and the decoders (the counterpart of tpu_zstd/api, less the hybrid
-engine and the streaming compressor)."""
+managers (the streaming compressor too) and the decoders (the counterpart
+of tpu_zstd/api, less the hybrid engine)."""
 
 from .config import (
     ChecksumPolicy,
@@ -22,6 +22,7 @@ from .manager import (
     BatchManager,
     Manager,
     StreamingDecompressor,
+    StreamingManager,
     compress_items,
 )
 
@@ -37,6 +38,7 @@ __all__ = [
     "Status",
     "Strategy",
     "StreamingDecompressor",
+    "StreamingManager",
     "compress_items",
     "decompress_batch_to_device",
     "decompress_batch_tpu",

@@ -1,27 +1,29 @@
-"""Managers: single-shot, batch and streaming-decode surfaces of the port.
+"""Managers: single-shot, batch and streaming surfaces of the port.
 
 Counterpart of tpu_zstd/api/manager.py: `Manager` (single-shot, routed by
 size: inputs under `cpu_threshold` compress with the host codec, larger
 ones on the card; `decompress` on the card through `decompress_batch_tpu`
 on the device execution paths, else with the host decoder),
 `BatchManager` (`compress_batch`, `compress_batch_async`,
-`decompress_batch`, `decompress_batch_to_device`) and
+`decompress_batch`, `decompress_batch_to_device`), `StreamingManager` (one
+frame across `compress_chunk` calls, each chunk's blocks reaching back into
+the chunks before it; its decode half is a `StreamingDecompressor`) and
 `StreamingDecompressor` (incremental host decode of arbitrary chunks).
-`Manager` and `BatchManager` resolve their device when made: None means
-CUDA, and they raise without it.
+The managers resolve their device when made: None means CUDA, and they
+raise without it.
 
-`compress_items` is the counterpart of `compress_items_tpu`, without
-cross-block windows: every item's blocks
-flatten into one (B, 128 KB) batch padded to a power-of-two bucket, the
-batch runs through `compress_blocks_staged`, the contents are trimmed on the
-device to the largest non-Raw block before the copy to the host, and each
-item's frame is assembled in Python (Raw blocks take the caller's bytes).
-With `decode_accel` every frame carries a trailing skippable frame of
-decoder checkpoints (format/accel.py), as the reference writes it. Levels
-1-22 run, each block compressed on its own (levels 7 and up with the
-long-range pass, 16 and up with the optimal parse); `enable_ldm` windows,
-streaming history and dictionary IDs belong to later slices of the port
-and raise NotImplementedError.
+`compress_items` is the counterpart of `compress_items_tpu`: every item's
+blocks flatten into one (B, 128 KB) batch padded to a power-of-two bucket,
+the batch runs through `compress_blocks_staged`, the contents are trimmed
+on the device to the largest non-Raw block before the copy to the host, and
+each item's frame is assembled in Python (Raw blocks take the caller's
+bytes). With `decode_accel` every frame carries a trailing skippable frame
+of decoder checkpoints (format/accel.py), as the reference writes it.
+Levels 1-22 run (levels 7 and up with the long-range pass, 16 and up with
+the optimal parse). With `enable_ldm` or `history` each block sees a window
+of the bytes before it in its stream (`compress_blocks_dict`): with
+`enable_ldm` alone through the long-range pass, with history through the
+search over the whole row; such frames carry no checkpoints.
 """
 
 from __future__ import annotations
@@ -47,7 +49,13 @@ from ..format.accel import write_accel_frame
 from ..format.frame import decode_literals_section, parse_frame_header, write_frame_header
 from ..format.sequences import decode_sequences_section, execute_sequences
 from ..format.xxhash import XXH64State, content_checksum
-from ..ops.pipeline import PipelineConfig, check_supported, compress_blocks_staged, resolve_device
+from ..ops.pipeline import (
+    PipelineConfig,
+    check_supported,
+    compress_blocks_dict,
+    compress_blocks_staged,
+    resolve_device,
+)
 from .config import (
     ChecksumPolicy,
     CompressionConfig,
@@ -89,18 +97,6 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
-def _check_port_supports(cfg: CompressionConfig) -> None:
-    later = [name for name, on in (
-        ("enable_ldm", cfg.enable_ldm),
-        ("dict_id", cfg.dict_id),
-    ) if on]
-    if later:
-        raise NotImplementedError(
-            f"not supported by the port yet: {', '.join(later)} (a later slice: cross-block "
-            "windows, dictionaries)"
-        )
-
-
 def compression_config_from_reference(d: dict) -> CompressionConfig:
     """The port's CompressionConfig from `dataclasses.asdict` of a JAX
     CompressionConfig. Raises ValueError on an unknown field."""
@@ -116,44 +112,78 @@ def compression_config_from_reference(d: dict) -> CompressionConfig:
     return CompressionConfig(**kw)
 
 
+LDM_WINDOW_CAP = 64 * 1024  # cross-block window size (enable_ldm / streaming history)
+
+
+def _window_cap(cfg: CompressionConfig) -> int:
+    """The window a block sees before it: 64 KB, or 2^window_log up to
+    1 MiB."""
+    return min(1 << cfg.window_log, 1 << 20) if cfg.window_log else LDM_WINDOW_CAP
+
+
 def compress_items(
     items: list[bytes], cfg: CompressionConfig, history: list[bytes] | None = None, device=None
 ) -> list[bytes]:
     """Compress a list of buffers in one device batch, one frame per item, on
-    `device` (None means CUDA)."""
-    if history is not None:
-        raise NotImplementedError("streaming history is not supported by the port yet")
-    _check_port_supports(cfg)
+    `device` (None means CUDA).
+
+    With cfg.enable_ldm or `history` every block also sees, as a window of
+    match sources, the bytes before it in its stream: `history[i]` (prior
+    stream content of item i) and the item's earlier blocks, up to
+    `_window_cap` bytes rounded up to 4 KB. enable_ldm without history
+    keeps the windowed search on the payload and reaches the window through
+    the long-range pass; history searches the whole row."""
     pcfg = _pipeline_config(cfg)
+    N = pcfg.block_size
+    windowed = cfg.enable_ldm or history is not None
+    dcap = 0
+    if windowed:
+        dcap = -(-_window_cap(cfg) // 4096) * 4096
+        extra = {"ldm": True, "ldm_window": True} if cfg.enable_ldm and history is None else {}
+        pcfg = dataclasses.replace(pcfg, dict_cap=dcap, **extra)
     check_supported(pcfg)
     dev = resolve_device(device)
-    N = pcfg.block_size
 
     spans: list[tuple[int, int]] = []  # (first_block, nblocks) per item
-    chunks: list[np.ndarray] = []
-    for data in items:
+    rows: list[tuple[np.ndarray, bytes]] = []  # (block, window tail) per block
+    for it_i, data in enumerate(items):
         n = len(data)
         nb = max(1, -(-n // N))
-        spans.append((len(chunks), nb))
+        spans.append((len(rows), nb))
         arr = np.frombuffer(data, dtype=np.uint8)
-        chunks += [arr[b * N : min((b + 1) * N, n)] for b in range(nb)]
-    B = len(chunks)
+        hist = history[it_i] if history is not None else b""
+        for b in range(nb):
+            tail = b""
+            if windowed:
+                # The last dcap bytes of hist + data[:b * N].
+                own = data[max(0, b * N - dcap) : b * N]
+                tail = hist[max(0, len(hist) + len(own) - dcap):] + own
+            rows.append((arr[b * N : min((b + 1) * N, n)], tail))
+    B = len(rows)
     Bpad = _bucket(B)
-    blocks_np = np.zeros((Bpad, N), dtype=np.uint8)
+    blocks_np = np.zeros((Bpad, dcap + N), dtype=np.uint8)
     lens_np = np.zeros(Bpad, dtype=np.int32)
-    for b, chunk in enumerate(chunks):
-        blocks_np[b, : len(chunk)] = chunk
+    dlens_np = np.zeros(Bpad, dtype=np.int32)
+    for b, (chunk, tail) in enumerate(rows):
+        blocks_np[b, dcap : dcap + len(chunk)] = chunk
+        if tail:
+            blocks_np[b, dcap - len(tail) : dcap] = np.frombuffer(tail, np.uint8)
         lens_np[b] = len(chunk)
+        dlens_np[b] = len(tail)
 
-    out = compress_blocks_staged(
-        torch.from_numpy(blocks_np).to(dev), torch.from_numpy(lens_np).to(dev), pcfg
-    )
+    blocks_t = torch.from_numpy(blocks_np).to(dev)
+    lens_t = torch.from_numpy(lens_np).to(dev)
+    if windowed:
+        out = compress_blocks_dict(blocks_t, lens_t, torch.from_numpy(dlens_np).to(dev), pcfg)
+    else:
+        out = compress_blocks_staged(blocks_t, lens_t, pcfg)
     contents_d = out[0]
     # Two-phase fetch: lengths and types first, then the contents trimmed to
     # the largest non-Raw block (Raw blocks re-use the caller's bytes).
     clens = out[1].cpu().numpy()
     btypes = out[2].cpu().numpy()
-    accel_meta = _accel_frames(out, btypes, spans, B, pcfg) if pcfg.ckpt_every else None
+    accel = pcfg.ckpt_every and not windowed
+    accel_meta = _accel_frames(out, btypes, spans, B, pcfg) if accel else None
     nonraw = btypes[:B] != BLOCK_RAW
     mx = int(clens[:B][nonraw].max()) if nonraw.any() else 1
     width = min(_bucket(max(mx, 64), lo=64), N)
@@ -164,10 +194,11 @@ def compress_items(
     for (first, nb), data in zip(spans, items):
         tail = [content_checksum(data).to_bytes(4, "little")] if checksum else []
         if len(data) == 0:
-            outs.append(b"".join([write_frame_header(0, checksum), (1).to_bytes(3, "little"),
-                                  *tail]))
+            outs.append(b"".join([write_frame_header(0, checksum, dict_id=cfg.dict_id),
+                                  (1).to_bytes(3, "little"), *tail]))
             continue
-        parts = [write_frame_header(len(data), checksum, window_log=cfg.window_log)]
+        parts = [write_frame_header(len(data), checksum, dict_id=cfg.dict_id,
+                                    window_log=cfg.window_log)]
         for k in range(nb):
             b = first + k
             last = 1 if k == nb - 1 else 0
@@ -243,7 +274,6 @@ class Manager:
         st = self.config.validate()
         if st != Status.SUCCESS:
             raise ValueError(f"invalid config: {st.name}")
-        _check_port_supports(self.config)
         self.execution_path = execution_path
         self.device = resolve_device(device)
         self.stats = CompressionStats()
@@ -332,7 +362,6 @@ class BatchManager:
 
     def __init__(self, level: int = 3, config: CompressionConfig | None = None, device=None):
         self.config = config or CompressionConfig.from_level(level)
-        _check_port_supports(self.config)
         self.device = resolve_device(device)
         self.stats = CompressionStats()
 
@@ -418,6 +447,102 @@ class BatchManager:
         self.stats.total_decompress_calls += 1
         self.stats.total_decompress_time_s += time.perf_counter() - t0
         return norm
+
+
+class StreamingManager:
+    """One zstd frame across `compress_chunk` calls, on `device` (None means
+    CUDA; raises without it): the frame header (no content size, the
+    config's window_log or 2^20) with the first chunk, each chunk's blocks
+    (`compress_items` of the chunk, its frame header and checksum stripped
+    and its last-block flag cleared), then `flush`: an empty last Raw block
+    and, if asked for, the checksum of every chunk. With window_history each
+    chunk's blocks reach back into the chunks before it, up to the window
+    `compress_items` gives a block (64 KB, or 2^window_log up to 1 MiB). The
+    decompress half is a `StreamingDecompressor` on the host."""
+
+    def __init__(self, level: int = 3, config: CompressionConfig | None = None,
+                 window_history: bool = True, device=None):
+        self.config = config or CompressionConfig.from_level(level)
+        self.window_history = window_history
+        self.device = resolve_device(device)
+        self._dec = None
+        self.reset()
+
+    def reset(self) -> None:
+        self._started = False
+        self._finished = False
+        self._hasher_data = bytearray()
+        self._history = b""
+        self.stats = CompressionStats()
+
+    def _header(self) -> bytes:
+        self._started = True
+        return write_frame_header(None, checksum=self.config.checksum != ChecksumPolicy.NONE,
+                                  dict_id=self.config.dict_id,
+                                  window_log=self.config.window_log or 20)
+
+    def compress_chunk(self, chunk: bytes) -> bytes:
+        """The chunk as blocks of the stream's frame (the header first, on
+        the first call)."""
+        if self._finished:
+            raise RuntimeError("stream finished; call reset()")
+        out = bytearray()
+        if not self._started:
+            out += self._header()
+        if self.config.checksum != ChecksumPolicy.NONE:
+            self._hasher_data += chunk
+        if chunk:
+            hist = [self._history] if self.window_history else None
+            frame, = compress_items([chunk], self.config, history=hist, device=self.device)
+            out += _strip_frame_to_blocks(frame, clear_last=True)
+        if self.window_history:
+            self._history = (self._history + chunk)[-_window_cap(self.config):]
+        self.stats.total_input_bytes += len(chunk)
+        self.stats.total_output_bytes += len(out)
+        return bytes(out)
+
+    def flush(self) -> bytes:
+        """End the frame: an empty last Raw block and the checksum."""
+        if self._finished:
+            return b""
+        out = bytearray()
+        if not self._started:
+            out += self._header()
+        out += (1).to_bytes(3, "little")  # empty Raw block, last=1
+        if self.config.checksum != ChecksumPolicy.NONE:
+            out += content_checksum(bytes(self._hasher_data)).to_bytes(4, "little")
+        self._finished = True
+        return bytes(out)
+
+    def decompress_chunk(self, data: bytes) -> bytes:
+        """Incremental decode of a compressed stream (StreamingDecompressor)."""
+        if self._dec is None:
+            self._dec = StreamingDecompressor()
+        return self._dec.decompress_chunk(data)
+
+    def decompress_flush(self) -> bytes:
+        return b"" if self._dec is None else self._dec.flush()
+
+    def decompress_reset(self) -> None:
+        if self._dec is not None:
+            self._dec.reset()
+
+
+def _strip_frame_to_blocks(frame: bytes, clear_last: bool) -> bytes:
+    """The block stream of a single frame, without its header and checksum;
+    with clear_last, the final block's last flag cleared."""
+    pos = parse_frame_header(frame).header_size
+    blocks = bytearray()
+    while True:
+        bh = int.from_bytes(frame[pos : pos + 3], "little")
+        last = bh & 1
+        size = 1 if (bh >> 1) & 3 == BLOCK_RLE else bh >> 3
+        blocks += (bh & ~1 if clear_last else bh).to_bytes(3, "little")
+        blocks += frame[pos + 3 : pos + 3 + size]
+        pos += 3 + size
+        if last:
+            break
+    return bytes(blocks)
 
 
 class StreamingDecompressor:

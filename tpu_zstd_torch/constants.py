@@ -15,6 +15,7 @@ import numpy as np
 ZSTD_MAGIC = 0xFD2FB528
 SKIPPABLE_MAGIC_MIN = 0x184D2A50
 SKIPPABLE_MAGIC_MAX = 0x184D2A5F
+DICT_MAGIC = 0xEC30A437
 
 BLOCK_SIZE_MAX = 128 * 1024  # RFC 8878 Block_Maximum_Size upper bound
 

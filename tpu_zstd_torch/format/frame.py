@@ -1,8 +1,7 @@
 """Zstandard frames, RFC 8878 §3.1 (host side): headers, the literals
 section, and the host codec.
 
-The port's copy of tpu_zstd/format/frame.py: `write_frame_header` (less
-the dictionary ID, which no caller of the port sets), `parse_frame_header`,
+The port's copy of tpu_zstd/format/frame.py: `write_frame_header`, `parse_frame_header`,
 the literals section's writers and `decode_literals_section`, the host
 compressor (`compress`: the hash-chain parse of format/lz77.py, Huffman or
 raw literals, predefined-table sequences) and the host decoder
@@ -49,10 +48,14 @@ class FrameHeader:
 
 
 def write_frame_header(
-    content_size: int | None, checksum: bool = False, window_log: int | None = None
+    content_size: int | None,
+    checksum: bool = False,
+    dict_id: int = 0,
+    window_log: int | None = None,
 ) -> bytes:
-    """Frame_Header per RFC 8878 §3.1.1.1 (no dictionary ID; single segment
-    up to 1 MiB of content unless an explicit window_log is given)."""
+    """Frame_Header per RFC 8878 §3.1.1.1 (single segment up to 1 MiB of
+    content unless an explicit window_log is given; a dictionary ID of 1,
+    2 or 4 bytes unless dict_id is 0)."""
     out = bytearray(ZSTD_MAGIC.to_bytes(4, "little"))
     single_segment = (
         content_size is not None and content_size <= (1 << 20) and window_log is None
@@ -72,13 +75,22 @@ def write_frame_header(
     else:
         fcs_flag = 3
         fcs_bytes = content_size.to_bytes(8, "little")
-    fhd = (fcs_flag << 6) | (int(single_segment) << 5) | (int(checksum) << 2)
+    if dict_id == 0:
+        did_flag, did_bytes = 0, b""
+    elif dict_id <= 0xFF:
+        did_flag, did_bytes = 1, dict_id.to_bytes(1, "little")
+    elif dict_id <= 0xFFFF:
+        did_flag, did_bytes = 2, dict_id.to_bytes(2, "little")
+    else:
+        did_flag, did_bytes = 3, dict_id.to_bytes(4, "little")
+    fhd = (fcs_flag << 6) | (int(single_segment) << 5) | (int(checksum) << 2) | did_flag
     out.append(fhd)
     if not single_segment:
         if window_log is None:
             cs = content_size if content_size else BLOCK_SIZE_MAX * 8
             window_log = max(10, min(31, int(cs - 1).bit_length()))
         out.append((window_log - 10) << 3)  # mantissa 0
+    out += did_bytes
     out += fcs_bytes
     return bytes(out)
 

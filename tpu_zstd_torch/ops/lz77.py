@@ -1,13 +1,14 @@
 """Batched LZ77 match finding and greedy / lazy / optimal parse.
 
-Counterpart of tpu_zstd/ops/lz77_jax.py without dictionary windows and
-sampling: the match finder over 2^mf_win_log windows or the whole block
-(min_match 3 or 4, the near-offset second band), the sampled long-range
-pass (LDM), the greedy parse with lazy defer and the offset-cost gate, the
-optimal parse (a pass-1 greedy walk prices every decision, then the segment
-DP chooses), extraction, the same-offset merge, repcodes and the min_match-3
-overflow poison. Every array carries a leading batch dimension (one row per
-block) where the JAX package vmaps per block.
+Counterpart of tpu_zstd/ops/lz77_jax.py: the match finder over
+2^mf_win_log windows or the whole block (min_match 3 or 4, the near-offset
+second band, sampled positions with their left extension, a window prefix
+of match sources before the payload), the sampled long-range pass (LDM),
+the greedy parse with lazy defer, the offset-cost gate and the decode-tuned
+minimum length, the optimal parse (a pass-1 greedy walk prices every
+decision, then the segment DP chooses), extraction, the same-offset merge,
+repcodes and the min_match-3 overflow poison. Every array carries a leading
+batch dimension (one row per block) where the JAX package vmaps per block.
 
 The design is the JAX package's: previous-occurrence search as a sort of
 (hash, pos) keys that carries the suffix words, depth-D candidates as the D
@@ -112,7 +113,8 @@ def _scatter_back(sp: torch.Tensor, *vals: torch.Tensor):
 
 def _chain_lengths(sk, sp, sw, d: int, lpos):
     """Match length of every sorted row against the row d above it (0 where
-    the hashes differ), and the position of that row."""
+    the hashes differ), the position of that row and whether the hashes
+    agree."""
     def _prev(x, fill):
         return torch.where(lpos < d, fill, torch.roll(x, d, -1))
 
@@ -124,7 +126,7 @@ def _chain_lengths(sk, sp, sw, d: int, lpos):
         x = x_k ^ _prev(x_k, 0)
         ml = ml + torch.where(alive, _word_inc(x), 0)
         alive = alive & (x == 0)
-    return ml, pp
+    return ml, pp, same
 
 
 def _sort_unique(key: torch.Tensor, *pays: torch.Tensor):
@@ -135,6 +137,11 @@ def _sort_unique(key: torch.Tensor, *pays: torch.Tensor):
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _col(x, dev):
+    """An int as it is, a (B,) tensor as a (B, 1) int64 column."""
+    return x.to(device=dev, dtype=torch.int64)[:, None] if torch.is_tensor(x) else x
 
 
 def _is_windowed(N: int, mf_win_log: int) -> bool:
@@ -152,16 +159,29 @@ def find_matches(
     min_match: int = 4,
     two_band: bool = False,
     use_pallas_match: bool = False,
+    win_start=0,
+    sample_log: int = 0,
 ):
     """Best (capped) match per position: returns (best_ml, best_off), each
     (B, N) int64 in position order, and with two_band also (ml2, off2), the
     best candidate at an offset below 512.
 
-    block (B, N) uint8, n (B,) payload lengths. Ties prefer the smallest
+    block (B, N) uint8, n (B,) payload lengths. Positions in [win_start, n)
+    take part (win_start, an int or (B,), marks a window prefix: bytes
+    before it are padding and never referenced). Ties prefer the smallest
     offset. With 0 < mf_win_log < log2(N) and N a multiple of the window,
     the candidate search is local to 2^mf_win_log windows, else it spans the
     whole block; match content extends past window ends (words are formed
     on the whole block).
+
+    sample_log > 0 (windowed search only): only every 2^sample_log-th
+    position takes part; a candidate whose preceding bytes also match
+    extends its match one byte left to the unsampled position before it.
+
+    The search over the whole block returns offsets in a 20-bit field, as
+    the JAX package packs them: a best offset of 2^20 or more (a window
+    prefix of 1 MiB) leaves the position without a match, where the JAX
+    package keeps the offset's low 20 bits (a wrong offset).
 
     use_pallas_match asks for the fused route (kernel K13, one launch over
     every window of the batch), taken where the JAX package takes its fused
@@ -170,45 +190,63 @@ def find_matches(
     runs, as the JAX package's does off the TPU). The fused route gives 0 at
     dead positions, where the sort route's clamp leaves lengths under
     min_match. Like the JAX package's, it returns one band, (best_ml,
-    best_off), even when two_band asks for two; where it does not apply,
-    two_band takes the sort route's four outputs.
+    best_off), even when two_band asks for two, and ignores sample_log;
+    where it does not apply, two_band takes the sort route's four outputs.
     """
     B, N = block.shape
     dev = block.device
     if use_pallas_match and dev.type == "cuda" and fused_route_ok(N, hash_log, mf_win_log):
         return find_matches_fused(block, n, hash_log=hash_log, depth=depth, cap=cap,
-                                  mf_win_log=mf_win_log, min_match=min_match)
+                                  mf_win_log=mf_win_log, min_match=min_match,
+                                  win_start=win_start)
     nwords = cap // 4
     pos = torch.arange(N, device=dev)
     n = n.to(torch.int64)
     w, h = _hash_words(block, hash_log, min_match)
-    live = pos < n[:, None] - (min_match - 1)
-    if _is_windowed(N, mf_win_log):
-        W, plog = 1 << mf_win_log, mf_win_log
+    live = (pos < n[:, None] - (min_match - 1)) & (pos >= _col(win_start, dev))
+    windowed = _is_windowed(N, mf_win_log)
+    SS = 1 << sample_log if sample_log > 0 and windowed else 1
+    if two_band and SS > 1:
+        raise ValueError("two_band requires an unsampled search")
+    if windowed:
+        W, plog = 1 << mf_win_log, mf_win_log - (sample_log if SS > 1 else 0)
     else:
         W, plog = N, max(1, (N - 1).bit_length())
     nwin = N // W
-    shape = (B, nwin, W)
-    words = [_as_i32(torch.roll(w, -4 * k, -1)).reshape(shape) for k in range(nwords)]
+    shape = (B, nwin, W // SS)
+
+    def sampled(x):
+        return x.reshape(B, nwin, W)[..., ::SS]
+
+    words = [sampled(_as_i32(torch.roll(w, -4 * k, -1))) for k in range(nwords)]
     del w
-    lpos = torch.arange(W, device=dev)
+    extra = []
+    if SS > 1:
+        # Left-extension operand: the byte before each sampled position
+        # (256 before position 0).
+        pb = torch.roll(block.to(torch.int64), 1, -1)
+        pb[:, 0] = 256
+        extra = [sampled(pb)]
+    lpos = torch.arange(W // SS, device=dev)
 
     # Sort positions by (hash, pos) as one int64 key, which orders as the
     # JAX package's packed u32 key or its two-key sort; dead rows get the
     # sentinel hash 2^hash_log and keep their position order.
-    key = (torch.where(live.reshape(shape), h.reshape(shape), 1 << hash_log) << plog) | lpos
-    skey, *sw = _sort_unique(key, *words)
+    key = (torch.where(sampled(live), sampled(h), 1 << hash_log) << plog) | lpos
+    skey, *sw = _sort_unique(key, *words, *extra)
     del key, words
+    spb = sw.pop() if SS > 1 else None
     sk = skey >> plog
     sp = skey & ((1 << plog) - 1)
 
     best_ml = torch.zeros(shape, dtype=torch.int64, device=dev)
     best_off = torch.zeros_like(best_ml)
+    best_ext = torch.zeros(shape, dtype=torch.bool, device=dev) if SS > 1 else None
     if two_band:
         best_ml2 = torch.zeros_like(best_ml)
         best_off2 = torch.zeros_like(best_ml)
     for d in range(1, depth + 1):
-        ml, pp = _chain_lengths(sk, sp, sw, d, lpos)
+        ml, pp, same = _chain_lengths(sk, sp, sw, d, lpos)
         off = sp - pp
         better = ml > best_ml
         best_ml = torch.where(better, ml, best_ml)
@@ -217,16 +255,46 @@ def find_matches(
             better2 = (off < 512) & (ml > best_ml2)
             best_ml2 = torch.where(better2, ml, best_ml2)
             best_off2 = torch.where(better2, off, best_off2)
-        del ml, pp, off, better
+        if best_ext is not None:
+            prev_pb = torch.where(lpos < d, -2, torch.roll(spb, d, -1))
+            best_ext = torch.where(better, same & (spb == prev_pb), best_ext)
+        del ml, pp, off, better, same
 
     # Clamp to block end (also cancels false matches into rolled-around words).
-    room = torch.clamp(n[:, None, None] - (sp + (torch.arange(nwin, device=dev) * W)[:, None]),
-                       min=0)
+    gsp = sp * SS + (torch.arange(nwin, device=dev) * W)[:, None]
+    room = torch.clamp(n[:, None, None] - gsp, min=0)
     best_ml = torch.minimum(best_ml, room)
+    best_off = best_off * SS
+    mlb = max(4, cap.bit_length())
+    if not (windowed and plog + mf_win_log + mlb + int(SS > 1) <= 31):
+        # The JAX package's restore packs (ml << 20) | off here: the length
+        # as it unpacks it, and no match where the offset overflows.
+        if SS > 1 and cap >= 1 << 6:
+            raise ValueError("a sampled search past the packed key needs cap < 64")
+        wide = best_off >= 1 << 20
+        best_ml = torch.where(wide, best_ml | (best_off >> 20), best_ml)
+        best_off = torch.where(wide, 0, best_off)
     out = [best_ml, best_off]
     if two_band:
         out += [torch.minimum(best_ml2, room), best_off2]
-    return tuple(v.reshape(B, N) for v in _scatter_back(sp, *out))
+    if SS == 1:
+        return tuple(v.reshape(B, N) for v in _scatter_back(sp, *out))
+
+    # Left-extension fill: an unsampled position q takes (ml + 1, off) from
+    # its sampled successor q + 1 when that one's winning candidate also
+    # matched one byte left.
+    def spread(v):
+        full = torch.zeros((B, nwin, W // SS, SS), dtype=torch.int64, device=dev)
+        full[..., 0] = v
+        return full.reshape(B, N)
+
+    ml_f, off_f, ext_f = (spread(v) for v in _scatter_back(sp, best_ml, best_off,
+                                                           best_ext.to(torch.int64)))
+    nx_ml = torch.roll(ml_f, -1, -1)
+    take = (torch.roll(ext_f, -1, -1) > 0) & (nx_ml > 0) & (ml_f == 0)
+    ml_f = torch.where(take, torch.minimum(nx_ml + 1, torch.clamp(n[:, None] - pos, min=0)), ml_f)
+    off_f = torch.where(take, torch.roll(off_f, -1, -1), off_f)
+    return ml_f, off_f
 
 
 def fused_route_ok(N: int, hash_log: int, mf_win_log: int) -> bool:
@@ -236,7 +304,7 @@ def fused_route_ok(N: int, hash_log: int, mf_win_log: int) -> bool:
 
 
 def find_matches_fused(block: torch.Tensor, n: torch.Tensor, *, hash_log: int, depth: int,
-                       cap: int, mf_win_log: int, min_match: int = 4):
+                       cap: int, mf_win_log: int, min_match: int = 4, win_start=0):
     """The fused route of `find_matches`: keys hash << mf_win_log | pos
     (the sentinel hash 2^hash_log on dead positions) and the cap // 4 suffix
     words per window, one `match_windows` call over every window of the
@@ -255,7 +323,7 @@ def find_matches_fused(block: torch.Tensor, n: torch.Tensor, *, hash_log: int, d
     pos = torch.arange(N, device=dev)
     n = n.to(torch.int64)
     w, h = _hash_words(block, hash_log, min_match)
-    live = pos < n[:, None] - (min_match - 1)
+    live = (pos < n[:, None] - (min_match - 1)) & (pos >= _col(win_start, dev))
     key = ((torch.where(live, h, sentinel) << mf_win_log) | (pos & (W - 1))).to(torch.int32)
     del h, live
     shape = (B * (N // W), W)
@@ -275,11 +343,13 @@ def find_matches_long(
     hash_log2: int = 16,
     sample_log: int = 2,
     depth: int = 2,
+    win_start=0,
     nwords: int = 4,
 ):
     """Sampled whole-block long-range match candidates (LDM): every
-    2^sample_log-th position, hashed over 8 bytes, verified and measured on
-    4 * nwords carried bytes; only matches of at least LDM_MIN count.
+    2^sample_log-th position from win_start on, hashed over 8 bytes, verified
+    and measured on 4 * nwords carried bytes; only matches of at least
+    LDM_MIN count.
     Returns (ml, off), each (B, N) int64, zero at unsampled positions."""
     B, N = block.shape
     dev = block.device
@@ -291,7 +361,7 @@ def find_matches_long(
     ws = [torch.roll(w, -4 * k, -1)[:, ::SS] for k in range(nwords)]
     h2 = (_mul32(ws[0], HASH_PRIME) ^ _mul32(ws[1], LDM_PRIME)) >> (32 - hash_log2)
     spos = torch.arange(N, device=dev)[::SS]
-    live = spos < n[:, None] - (LDM_MIN + 3)
+    live = (spos < n[:, None] - (LDM_MIN + 3)) & (spos >= _col(win_start, dev))
     idx = torch.arange(P, device=dev)
     key = (torch.where(live, h2, 1 << hash_log2) << plog) | idx
     skey, *sw = _sort_unique(key, *(_as_i32(x) for x in ws))
@@ -301,7 +371,7 @@ def find_matches_long(
     best_ml = torch.zeros((B, P), dtype=torch.int64, device=dev)
     best_di = torch.zeros_like(best_ml)
     for d in range(1, depth + 1):
-        ml, pp = _chain_lengths(sk, sp, sw, d, idx)
+        ml, pp, _ = _chain_lengths(sk, sp, sw, d, idx)
         better = (ml >= LDM_MIN) & (ml > best_ml)
         best_ml = torch.where(better, ml, best_ml)
         best_di = torch.where(better, sp - pp, best_di)
@@ -348,19 +418,21 @@ def _sym_bits(hist: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.where(hist > 0, bits, unseen) * SCALE).to(torch.int64)
 
 
-def optimal_prices(block, n, ml_t, ofc, matched, *, min_match: int, cap: int, seg: int):
+def optimal_prices(block, n, ml_t, ofc, matched, *, min_match: int, cap: int, seg: int,
+                   block_start: int = 0):
     """Pass 1 of the optimal parse: a greedy walk (K3) over the candidates,
     then the block's measured symbol economics in SCALE units: OF-code bits
-    (B, 32), the literal price (B,) from the residual literals' entropy and
-    the 128-lane cost bank (B, 128): OF-symbol bits plus the amortised LL
-    symbol at lanes [0, 32), ML-symbol bits plus exact ML extra bits for
-    lengths min_match..min(cap, 127) from lane 32. ofc: each candidate's
-    offset code."""
+    (B, 32), the literal price (B,) from the residual literals' entropy (of
+    the payload, from block_start on) and the 128-lane cost bank (B, 128):
+    OF-symbol bits plus the amortised LL symbol at lanes [0, 32), ML-symbol
+    bits plus exact ML extra bits for lengths min_match..min(cap, 127) from
+    lane 32. ofc: each candidate's offset code."""
     B, N = block.shape
-    in_block = torch.arange(N, device=block.device) < n[:, None]
+    pos = torch.arange(N, device=block.device)
+    in_block = pos < n[:, None]
     is_seq1, is_lit1 = greedy_parse(torch.where(matched, ml_t, 1), matched, None, seg)
     ch = is_seq1 & in_block
-    lit1 = is_lit1 & in_block
+    lit1 = is_lit1 & in_block & (pos >= block_start)
     nch = torch.clamp(ch.sum(-1), min=1)
     of_bits = _sym_bits(_bins(ofc, ch, 32), nch)
     ml_bits_h = _sym_bits(_bins(ml_code(torch.clamp(ml_t, min=3)), ch, 53), nch)
@@ -384,18 +456,20 @@ def optimal_prices(block, n, ml_t, ofc, matched, *, min_match: int, cap: int, se
 
 
 def _optimal_steps(block, n, ml_t, boff, matched, bml2, boff2, room, *,
-                   min_match: int, cap: int, seg: int):
+                   min_match: int, cap: int, seg: int, block_start: int = 0):
     """The optimal branch of the JAX parse: price (pass 1), the segment DP
     over both candidate bands (K10), then which band each chosen match
     takes. Returns (matched, ml_t, boff, step) for the final walk."""
     B, N = block.shape
-    in_block = torch.arange(N, device=block.device) < n[:, None]
+    pos = torch.arange(N, device=block.device)
+    in_payload = (pos < n[:, None]) & (pos >= block_start)
     ofc = highbit32(torch.clamp(boff + 3, min=1))
     of_bits, lit_price, bank = optimal_prices(
-        block, n, ml_t, ofc, matched, min_match=min_match, cap=cap, seg=seg)
+        block, n, ml_t, ofc, matched, min_match=min_match, cap=cap, seg=seg,
+        block_start=block_start)
     mlv = torch.where(matched, torch.clamp(ml_t, max=127), 0)
     ml2_t = torch.minimum(bml2, room)
-    ok2 = (ml2_t >= min_match) & (boff2 > 0) & in_block
+    ok2 = (ml2_t >= min_match) & (boff2 > 0) & in_payload
     mlv2 = torch.where(ok2, torch.clamp(ml2_t, max=127), 0)
     ofc2 = highbit32(torch.clamp(boff2 + 3, min=1))
     packed = (mlv | (torch.clamp(ofc, max=31) << 7) | (mlv2 << 12)
@@ -433,9 +507,20 @@ def parse_block(
     mf_win_log: int,
     optimal: bool = False,
     ldm: bool = False,
+    block_start: int = 0,
+    win_start=0,
+    sample_log: int = 0,
+    dec_min_ml: int = 0,
 ) -> BlockSequences:
-    """Parse blocks (B, N) uint8 with payload lengths n (B,) into sequences
-    (the no-dictionary branches of the JAX parse)."""
+    """Parse blocks (B, N) uint8 with lengths n (B,) into sequences.
+
+    Window mode: each row's payload lies in [block_start, n) and
+    [win_start, block_start) (win_start an int or (B,)) holds the bytes
+    before it, match sources only; literals are the payload's. With ldm and
+    a windowed search whose windows tile the payload, the windowed matcher
+    runs on the payload alone and reaches the prefix only through the
+    long-range pass. dec_min_ml > min_match drops matches shorter than it,
+    except same-offset continuations."""
     if min_match not in (3, 4):
         raise NotImplementedError("only min_match 3 and 4 are ported")
     B, N = block.shape
@@ -444,15 +529,20 @@ def parse_block(
     pos = torch.arange(N, device=dev)
     in_block = pos < n[:, None]
 
-    fm = find_matches(
-        block, n, hash_log=hash_log, depth=depth, cap=cap, mf_win_log=mf_win_log,
-        min_match=min_match, two_band=optimal,
-    )
+    windowed_ldm = ldm and 0 < mf_win_log < max(1, (N - 1).bit_length())
+    fm_kw = dict(hash_log=hash_log, depth=depth, cap=cap, mf_win_log=mf_win_log,
+                 min_match=min_match, two_band=optimal, sample_log=sample_log)
+    if windowed_ldm and block_start > 0 and (N - block_start) % (1 << mf_win_log) == 0:
+        # The prefix adds no rows to the windowed matcher's sorts.
+        fm = find_matches(block[:, block_start:], n - block_start, **fm_kw)
+        fm = [torch.nn.functional.pad(x, (block_start, 0)) for x in fm]
+    else:
+        fm = find_matches(block, n, win_start=win_start, **fm_kw)
     bml, boff = fm[0], fm[1]
-    if ldm and 0 < mf_win_log < max(1, (N - 1).bit_length()):
+    if windowed_ldm:
         # Long-range supplement, taken only where strictly longer than the
         # local match (long offsets cost extra bits).
-        lml, loff = find_matches_long(block, n)
+        lml, loff = find_matches_long(block, n, win_start=win_start)
         take_l = lml > bml
         bml = torch.where(take_l, lml, bml)
         boff = torch.where(take_l, loff, boff)
@@ -462,14 +552,18 @@ def parse_block(
     seg = 1 << seg_log
     room = seg - (pos & (seg - 1))
     ml_t = torch.minimum(bml, room)
-    matched = (ml_t >= min_match) & (boff > 0) & in_block
+    matched = (ml_t >= min_match) & (boff > 0) & in_block & (pos >= block_start)
+    if dec_min_ml > min_match:
+        # Decode-tuned profile: fewer, longer sequences; same-offset
+        # continuations stay (the merge pass joins them).
+        matched = matched & ((ml_t >= dec_min_ml) | (boff == torch.roll(boff, 1, -1)))
     defer = None
     if optimal:
         # Segment DP over both candidate bands; lazy and the offset-cost
         # gate do not apply.
         matched, ml_t, boff, step = _optimal_steps(
             block, n, ml_t, boff, matched, fm[2], fm[3], room,
-            min_match=min_match, cap=cap, seg=seg)
+            min_match=min_match, cap=cap, seg=seg, block_start=block_start)
     else:
         if tuple(of_gate) != (99, 99):
             # Offset-cost gate: short matches at large offsets stay literals;
@@ -493,7 +587,7 @@ def parse_block(
 
     is_seq, is_lit = greedy_parse(step, matched, defer, seg)
     is_seq = is_seq & in_block
-    is_lit = is_lit & in_block
+    is_lit = is_lit & in_block & (pos >= block_start)
     nseq = is_seq.sum(-1)
     nlit = is_lit.sum(-1)
 
@@ -541,7 +635,7 @@ def parse_block(
 
     ends = starts + mls
     prev_end = torch.roll(ends, 1, -1)
-    prev_end[:, 0] = 0
+    prev_end[:, 0] = block_start
     lls = torch.where(valid, starts - prev_end, 0)
 
     # Merge contiguous same-offset sequences: a head's merged length ends
@@ -576,8 +670,9 @@ def parse_block(
         # assembler then emits it Raw).
         over = nseq > max_seqs
         nseq2 = torch.where(over, 0, nseq2)
-        lits = torch.where(over[:, None], block.to(torch.uint8), lits)
-        nlit = torch.where(over, torch.clamp(n, min=0), nlit)
+        pay = torch.roll(block, -block_start, -1) if block_start else block
+        lits = torch.where(over[:, None], pay.to(torch.uint8), lits)
+        nlit = torch.where(over, torch.clamp(n - block_start, min=0), nlit)
         ll2, ml2, ob, off2, starts2 = (torch.where(over[:, None], 0, a).to(a.dtype)
                                        for a in (ll2, ml2, ob, off2, starts2))
 

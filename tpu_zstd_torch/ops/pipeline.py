@@ -11,7 +11,10 @@ payload lengths; the work runs on the tensors' device.
 Staged as in the JAX package: the parse runs first, the host reads max(nseq)
 to pick a sequence-bucket width, then the encode and assembly run at that
 width. `compress_blocks_staged_many` keeps one batch's parse in flight while
-the previous batch's nseq crosses to the host.
+the previous batch's nseq crosses to the host. `compress_blocks_dict` runs
+rows with a window prefix (`dict_cap` bytes before each payload: a
+dictionary's tail or the stream before the block) with the JAX package's
+coarser sequence ladder.
 """
 
 from __future__ import annotations
@@ -69,6 +72,11 @@ class PipelineConfig:
         # sequences becomes Raw (the overflow poison of the parse).
         return self.block_size // 4
 
+    @property
+    def seq_cap(self) -> int:
+        """Sequence-section byte capacity at the full sequence width."""
+        return self.seq_cap_for(self.max_seqs)
+
     def seq_cap_for(self, msb: int) -> int:
         """Sequence-section byte capacity for an nseq bucket of msb entries
         (40 bits per sequence plus header room, 4096-aligned)."""
@@ -82,15 +90,6 @@ SLICE_CONFIG = PipelineConfig(huffman_literals=False, custom_fse=False)
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for a setting the port does not run."""
-    off = {
-        "dict_cap": cfg.dict_cap,
-        "ldm_window": cfg.ldm_window,
-        "sample_log": cfg.sample_log,
-        "dec_min_ml": cfg.dec_min_ml,
-    }
-    on = [k for k, v in off.items() if v]
-    if on:
-        raise NotImplementedError(f"not supported by the port: {', '.join(on)}")
     N = cfg.block_size
     if cfg.min_match not in (3, 4):
         raise NotImplementedError("only min_match 3 and 4 are supported")
@@ -128,12 +127,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig) -> BlockSequences:
+def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig,
+               dlens=None) -> BlockSequences:
     """Parse stage for a batch (one row per block; the JAX version is the
-    per-block function it vmaps)."""
+    per-block function it vmaps). Rows are (dict_cap + N): padding, then
+    dlens window bytes, then the payload."""
+    DC = cfg.dict_cap
     return parse_block(
         blocks,
-        lengths,
+        DC + lengths.to(torch.int64),
         max_seqs=cfg.max_seqs,
         hash_log=cfg.hash_log,
         depth=cfg.depth,
@@ -145,6 +147,10 @@ def _parse_one(blocks: torch.Tensor, lengths: torch.Tensor, cfg: PipelineConfig)
         mf_win_log=cfg.eff_mf_win_log,
         optimal=cfg.optimal,
         ldm=cfg.ldm,
+        block_start=DC,
+        win_start=0 if dlens is None else DC - dlens.to(torch.int64),
+        sample_log=cfg.sample_log,
+        dec_min_ml=cfg.dec_min_ml,
     )
 
 
@@ -217,7 +223,7 @@ def _assemble_one(blocks, n, lits, nlit, nseq, seq_bytes, seq_len, cfg: Pipeline
     body_len = lit_sec_len + seq_len
 
     # Block type decision. RLE: the whole block is one repeated byte.
-    payload = blocks[:, :N]
+    payload = blocks[:, cfg.dict_cap : cfg.dict_cap + N]
     pos = torch.arange(N, device=blocks.device)
     all_same = ((payload != payload[:, :1]) & (pos < n[:, None])).sum(-1) == 0
     is_rle = all_same & (n >= 2)
@@ -289,6 +295,34 @@ def compress_blocks_staged(blocks: torch.Tensor, lengths: torch.Tensor, cfg: Pip
     return _encode_stage(blocks, lengths, seqs, cfg, msb)
 
 
+def compress_blocks_dict(blocks: torch.Tensor, lengths: torch.Tensor, dlens: torch.Tensor,
+                         cfg: PipelineConfig):
+    """Batched compression of rows with a window prefix: blocks
+    (B, dict_cap + N) uint8 laid out [padding | dlens window bytes |
+    payload], lengths the payload lengths. Returns what `_assemble_one`
+    does, on the blocks' device.
+
+    The sequence encode is the JAX package's in-graph ladder: the tables
+    are chosen once at the full sequence width, then the chains, deposit
+    and assembly run at 2048, 4096 or the full width, the first covering
+    max(nseq) (one scalar read by the host), always with the full width's
+    section capacity."""
+    check_supported(cfg)
+    seqs = _parse_one(blocks, lengths, cfg, dlens)
+    full = cfg.max_seqs
+    rungs = [b for b in _BUCKETS[:2] if b < full] + [full]
+    bmax = int(seqs.nseq.max())
+    msb = rungs[sum(bmax > b for b in rungs[:-1])]
+    if cfg.custom_fse:
+        prep = prepare_sequences_auto(seqs.ll, seqs.ml, seqs.ob, seqs.nseq, full)
+        seq_bytes, seq_len = encode_prepared(prep, seqs.nseq, msb, cfg.seq_cap)
+    else:
+        seq_bytes, seq_len = encode_sequences_predefined(
+            seqs.ll[:, :msb], seqs.ml[:, :msb], seqs.ob[:, :msb], seqs.nseq, msb, cfg.seq_cap)
+    return _assemble_one(blocks, lengths, seqs.lits, seqs.nlit, seqs.nseq, seq_bytes, seq_len,
+                         cfg)
+
+
 def compress_blocks_staged_many(batches, cfg: PipelineConfig):
     """Pipelined staged compression over an iterable of (blocks, lengths).
 
@@ -345,8 +379,12 @@ def compress(
     data: bytes, cfg: PipelineConfig = DEFAULT_CONFIG, checksum: bool = False, device=None
 ) -> bytes:
     """Single-shot compression of one buffer into one zstd frame, on `device`
-    (None means CUDA). checksum=True appends the content checksum."""
+    (None means CUDA). checksum=True appends the content checksum. Blocks
+    are compressed on their own: a dict_cap needs rows with their window
+    prefix (`compress_blocks_dict`) and raises ValueError here."""
     check_supported(cfg)
+    if cfg.dict_cap:
+        raise ValueError("dict_cap needs rows with a window prefix: use compress_blocks_dict")
     dev = resolve_device(device)
     tail = [content_checksum(data).to_bytes(4, "little")] if checksum else []
     if len(data) == 0:
