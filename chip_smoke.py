@@ -185,6 +185,40 @@ Phases, in order; any failure exits non-zero:
    K2 and K3 on the largest input each window path gave them, and the
    kernel line gives each kernel's launches on every window path
    (`launches_windows`).
+4g. The last modules, on the inputs of tests/golden/torch_slice7.json
+   (tests/torch_cases.py `slice7_inputs`), each device path driven once
+   through its entry point with the counts set to 0 just before and read
+   just after (the kernel line's `launches_4g`), with its peak device
+   memory: the native host library built by g++ from the port's copies
+   into tpu_zstd_torch/_build/ (XXH64 / XXH32 of seeded buffers against the
+   golden; `NativeEngine` frames at levels 1, 3 and 19 of make_corpus(4
+   MiB) against the golden, decoded by the engine and by the port's host
+   decoder, MB/s on the host CPU whose model lscpu gives); the 16 MiB frame
+   of phase 4e through `decompress_batch_tpu` (the host parse now with
+   native Huffman literals, the device half) and the one-shot host
+   `decompress`; `compress_items` of the 16 level-3 items (the native frame
+   assembler where its condition holds; it and the Python join timed on
+   that batch's blocks, their frames equal); `HybridEngine` on the card
+   (`decide_route` against the golden; AUTO on the 16 MiB corpus as host
+   bytes to the card, its frame torch_slice5.json's; on 64 KB to the native
+   engine, its frame the golden's; a 1 MiB uint8 CUDA tensor as DEVICE to
+   the card; FORCE_TPU decode of the 128 decode_accel frames through the
+   prepared plan and of a multi-block frame re-headed to an 8 MiB window
+   through `decompress_batch_tpu`; ADAPTIVE switching once both histories
+   hold samples; `hybrid_compress` / `hybrid_decompress`);
+   `NvcompV5BatchManager(level=3)` over the 16 items (the metadata frame
+   against the golden, the chunks against torch_slice2.json, `decompress`
+   and `decompress_chunk(7)`); `BatchManager(level=3)` over the 16 items
+   under `torch.cuda.set_per_process_memory_fraction` (the resident memory
+   plus 0.75 of the unconstrained peak; the error injected at the call if
+   the cap does not bite), at least one split, no item finished on the host
+   and every frame the golden's;
+   `select_adaptive_level` against the golden and
+   `AdaptiveLevelSelector(RATIO).config_for` feeding a `Manager` on the card
+   (level 19, K10); the profiler's report over the hybrid, nvCOMP and OOM
+   steps; `compress_blocks_sharded` of the bench batch in an NCCL group of
+   one rank (every block against torch_slice2.json) and
+   `compress_batch_distributed` of the 16 items.
 5. Times on the card at DEFAULT_CONFIG: the pipelined batch (5 batches, best
    of 2), peak device memory, the parse and encode stages; at level 19 the
    pipelined batch (best of 2) and its peak device memory; the decode as
@@ -224,6 +258,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -434,6 +469,457 @@ def match_bound_ms(key, words, depth: int, sentinel: int):
     return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
 
 
+def _host_cpu() -> str:
+    """The host CPU as lscpu (else /proc/cpuinfo) reports it: model name,
+    vendor, family / model / stepping, and the cores this process sees."""
+    import os
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        out = ""
+    fields = {k.strip(): v.strip() for k, _, v in (ln.partition(":") for ln in out.splitlines())}
+    if "Model name" not in fields:  # no lscpu: the kernel's cpuinfo
+        try:
+            info = pathlib.Path("/proc/cpuinfo").read_text().split("\n\n")[0]
+        except OSError:
+            info = ""
+        cpu = {k.strip(): v.strip() for k, _, v in (ln.partition(":") for ln in info.splitlines())}
+        fields = {"Model name": cpu.get("model name"), "Vendor ID": cpu.get("vendor_id"),
+                  "CPU family": cpu.get("cpu family"), "Model": cpu.get("model"),
+                  "Stepping": cpu.get("stepping")}
+    ident = "/".join(str(fields.get(k)) for k in ("CPU family", "Model", "Stepping"))
+    return (f"{fields.get('Model name') or 'model not reported'} ({fields.get('Vendor ID')} "
+            f"family/model/stepping {ident}), {len(os.sched_getaffinity(0))} cores")
+
+
+def _host_decode_timed(frame: bytes, one_shot: bool) -> tuple[bytes, float]:
+    """One host decode in a worker process and its seconds: the one-shot
+    `tpu_zstd_torch.decompress` (its host route, on the CPU) or the port's
+    host decoder (format/frame.py)."""
+    import tpu_zstd_torch
+    from tpu_zstd_torch.format import frame as host_frame
+
+    t0 = time.perf_counter()
+    out = (tpu_zstd_torch.decompress(frame, device="cpu") if one_shot
+           else host_frame.decompress(frame))
+    return out, time.perf_counter() - t0
+
+
+def _same_golden(got: bytes, g: dict, what: str) -> None:
+    if (len(got), _sha(got)) != (g["len"], g["sha256"]):
+        _fail(f"phase 4g: {what} differs from the JAX golden ({len(got)} bytes)")
+
+
+def phase_4g(h) -> dict:
+    """Phase 4g: the last modules. `h` carries main()'s helpers and data.
+    Returns each path's launches by kernel."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from tpu_zstd_torch.api import manager
+    from tpu_zstd_torch.api.decompress import decode_parsed, parse_batch
+    from tpu_zstd_torch.utils import native
+
+    t4g = time.perf_counter()
+    card, data, g7, tc, dev = h.card, h.data, h.golden7, h.torch_cases, h.dev
+    cpu = _host_cpu()
+    where = f"[{card} | host {cpu}]"
+    inp = tc.slice7_inputs(data)
+    if g7["corpus"] != f"make_corpus({B} * {N})" or g7["seed"] != tc.SLICE7_SEED:
+        _fail("phase 4g: torch_slice7.json is not made from the bench corpus")
+    paths: dict = {}
+
+    # 1. The native host library from the port's copies: XXH64/32, the engine's
+    # frames at levels 1, 3 and 19 of make_corpus(4 MiB), their decode by the
+    # engine and by the port's host decoder. The host decodes (pure Python:
+    # these three frames and step 2's one-shot decode of the 16 MiB frame)
+    # run in four worker processes at once.
+    if native.get_native() is None:
+        _fail("phase 4g: no C++ compiler for the native host library")
+    so = native.library_path()
+    if not so.is_relative_to(ROOT / "tpu_zstd_torch" / "_build"):
+        _fail(f"phase 4g: the native library is {so}")
+    print(f"phase 4g: native host library {so.name} (built in phase 1); host CPU {cpu}")
+    for b, g in zip(inp["xxh"], g7["xxh"]):
+        got = [native.xxh64(b), native.xxh64(b, 7), native.xxh32(b), native.xxh32(b, 7)]
+        if len(b) != g["len"] or got != [g["xxh64"], g["xxh64_seed"], g["xxh32"], g["xxh32_seed"]]:
+            _fail(f"phase 4g: XXH64/XXH32 of {len(b)} bytes differ from the JAX golden")
+    print(f"phase 4g: XXH64 / XXH32 of {len(inp['xxh'])} seeded buffers (0 B - 1 MiB, seeds 0 "
+          f"and 7) == JAX golden")
+    d4 = inp["native"]
+    rows = []
+    for level, g in zip(tc.SLICE7_LEVELS, g7["native"]["frames"]):
+        eng = native.NativeEngine.create(level)
+        t0 = time.perf_counter()
+        f = eng.compress(d4)
+        t_c = time.perf_counter() - t0
+        _same_golden(f, g, f"the native level-{level} frame")
+        t0 = time.perf_counter()
+        back = eng.decompress(f, len(d4))
+        t_d = time.perf_counter() - t0
+        if back != d4:
+            _fail(f"phase 4g: NativeEngine.decompress of the level-{level} frame failed")
+        h.decodes(f, d4, f"the native level-{level} frame")
+        rows.append((level, f, t_c, t_d))
+    frame16 = h.frame16
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=4, mp_context=multiprocessing.get_context("spawn")) as ex:
+        host_runs = [ex.submit(_host_decode_timed, f, False) for _, f, _, _ in rows]
+        one_shot = ex.submit(_host_decode_timed, frame16, True)
+        host_runs = [r.result() for r in host_runs]
+        host16, t_h16 = one_shot.result()
+    t_pool = time.perf_counter() - t0
+    for (level, f, t_c, t_d), (host_back, t_h) in zip(rows, host_runs):
+        if host_back != d4:
+            _fail(f"phase 4g: the port's host decoder returned other bytes for the level-{level} "
+                  f"frame")
+        print(f"time {where}: NativeEngine level {level}, make_corpus(4 MiB) == JAX golden "
+              f"({len(f)} bytes, ratio {len(d4) / len(f):.4f}): compress {t_c * 1e3:.1f} ms = "
+              f"{len(d4) / t_c / 1e6:.2f} MB/s, NativeEngine.decompress {t_d * 1e3:.1f} ms = "
+              f"{len(d4) / t_d / 1e6:.2f} MB/s, the port's host decoder {t_h:.2f} s = "
+              f"{len(d4) / t_h / 1e6:.3f} MB/s (one of 4 decodes in parallel processes, "
+              f"{t_pool:.1f} s for all)")
+
+    # 2. The host parse with native Huffman literals: decompress_batch_tpu on
+    # the 16 MiB level-3 frame (torch_slice5.json), then the one-shot host
+    # decode of the same frame.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parsed = parse_batch([frame16])
+    t_parse = time.perf_counter() - t0
+    base = h.peak_base()
+    (out16,), paths["long_window_decode"], _ = h.record(
+        [], lambda: decode_parsed(parsed, device=dev), True)
+    peak16 = h.peak_gib(base)
+    if out16 != data:
+        _fail("phase 4g: decompress_batch_tpu of the 16 MiB frame returned other bytes")
+    h.must_launch(paths["long_window_decode"], ("decode_seq", "exec"), "phase 4g 16 MiB decode")
+    t_dev = h.best_of(lambda: decode_parsed(parsed, device=dev))
+    del parsed
+    print(f"time {where}: 16 MiB level-3 frame, decompress_batch_tpu: host parse (parse_batch, "
+          f"native Huffman literals) {t_parse:.3f} s (pure-Python literals: 3.581 s at commit "
+          f"2298cfb; 1.790-1.956 s for the 16 MiB stream at commit 04f5e05), device half "
+          f"{t_dev:.3f} s (best of 2), wall {t_parse + t_dev:.3f} s = "
+          f"{len(data) / (t_parse + t_dev) / 1e6:.2f} MB/s; peak device memory {peak16}")
+    if host16 != data:
+        _fail("phase 4g: the host decode of the 16 MiB frame returned other bytes")
+    print(f"time {where}: tpu_zstd_torch.decompress(16 MiB frame) on the host {t_h16:.2f} s = "
+          f"{len(data) / t_h16 / 1e6:.3f} MB/s (in a worker process beside step 1's three; "
+          f"0.309-0.407 MB/s at commits 2298cfb and 04f5e05)")
+
+    joins: list[bool] = []
+    join_args: list = []
+    orig_join = manager._assemble_native
+
+    def counted(*a):
+        out = orig_join(*a)
+        joins.append(out is not None)
+        join_args[:] = [a]
+        return out
+
+    manager._assemble_native = counted  # until step 6 ends
+    try:
+        return _phase_4g_device(h, paths, joins, (orig_join, join_args), cpu, where, inp, t4g)
+    finally:
+        manager._assemble_native = orig_join
+
+
+def _phase_4g_device(h, paths, joins, join_last, cpu, where, inp, t4g) -> dict:
+    """Phase 4g, steps 3-9 (the device paths); `joins` records each call of
+    the native frame assembler (True where it joined the batch);
+    `join_last` is the unwrapped assembler and the arguments of its last
+    call."""
+    import torch
+    import torch.distributed as dist
+
+    import tpu_zstd_torch
+    from tpu_zstd_torch.api import adaptive, hybrid, manager, nvcomp
+    from tpu_zstd_torch.api.config import CompressionConfig
+    from tpu_zstd_torch.ops.pipeline import DEFAULT_CONFIG
+    from tpu_zstd_torch.parallel import compress_batch_distributed, compress_blocks_sharded
+    from tpu_zstd_torch.parallel import make_mesh
+    from tpu_zstd_torch.utils.profiler import get_profiler
+
+    data, g7, tc, dev = h.data, h.golden7, h.torch_cases, h.dev
+    bm3_frames, items16 = h.bm3
+    gi = h.golden2["items"]
+
+    def joined(since: int) -> str:
+        new = joins[since:]
+        if not all(new):
+            _fail("phase 4g: the native frame assembler returned nothing")
+        return f"{len(new)} of its batches joined by the native assembler"
+
+    # 3. compress_items of the 16 level-3 items: the native frame assembler
+    # wherever its condition holds (no trim, no empty item).
+    base = h.peak_base()
+    n0 = len(joins)
+    frames_i, paths["items"], _ = h.record(
+        [], lambda: manager.compress_items(items16, CompressionConfig.from_level(3), device=dev),
+        True)
+    peak_i = h.peak_gib(base)
+    h.same_frames(frames_i, gi["frames"], "phase 4g compress_items")
+    print(f"phase 4g: compress_items(16 items, level 3) == JAX golden; {joined(n0)}; launches "
+          f"{paths['items']}; peak device memory {peak_i}")
+    # The two joins of the host on that batch's blocks, the same frames.
+    native_join, (args,) = join_last[0], join_last[1]
+    t_join, joined_by = {}, {}
+    for name, fn in (("native", native_join), ("Python", manager._assemble_python)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            joined_by[name] = fn(*args)
+            best = min(best, time.perf_counter() - t0)
+        t_join[name] = best * 1e3
+    if joined_by["native"] != joined_by["Python"] or not all(
+            f.startswith(j) for f, j in zip(frames_i, joined_by["native"])):
+        _fail("phase 4g: the native and the Python joins gave other frames")
+    print(f"time {where}: the frame join of the 16 items ({sum(map(len, frames_i))} bytes), "
+          f"best of 3 on the host: native assembler {t_join['native']:.3f} ms, Python join "
+          f"{t_join['Python']:.3f} ms")
+
+    prof = get_profiler()
+    prof.reset()
+    prof.enable()
+
+    # 4. HybridEngine on the card.
+    def show(label, res):
+        print(f"phase 4g: {label}: HybridResult(backend={res.backend.name}, "
+              f"reason={res.routing_reason!r}, in {res.input_size}, out {res.output_size}, "
+              f"{res.total_time_s * 1e3:.2f} ms = {res.throughput_mbps:.2f} MB/s)")
+
+    def route_of(mode, size, loc, is_c):
+        eng = hybrid.HybridEngine(hybrid.HybridConfig(mode=hybrid.RoutingMode(mode)), device=dev)
+        b, why = eng.decide_route(size, hybrid.DataLocation(loc), is_c)
+        return {"call": [mode, size, loc, is_c], "backend": int(b), "reason": why}
+
+    if [route_of(*c) for c in tc.SLICE7_ROUTES] != g7["routes"]:
+        _fail("phase 4g: HybridEngine.decide_route differs from the JAX golden")
+    eng = hybrid.HybridEngine(device=dev)
+    res = hybrid.HybridResult()
+    n0 = len(joins)
+    with prof.scope("4g hybrid AUTO 16 MiB", len(data)):
+        f16, paths["hybrid_auto"], _ = h.record([], lambda: eng.compress(data, result=res), True)
+    if not joins[n0:]:
+        _fail("phase 4g: the 16 MiB item did not take the native frame assembler")
+    if res.backend != hybrid.Backend.TPU_KERNELS:
+        _fail(f"phase 4g: AUTO routed 16 MiB of host bytes to {res.backend.name}")
+    _same_golden(f16, h.golden5, "HybridEngine AUTO's 16 MiB frame")
+    h.must_launch(paths["hybrid_auto"], ("roll", "concat", "greedy", "rep", "chain"),
+                  "phase 4g HybridEngine AUTO")
+    show(f"AUTO, 16 MiB host bytes (frame == torch_slice5.json; {joined(n0)})", res)
+    res = hybrid.HybridResult()
+    with prof.scope("4g hybrid AUTO 64 KB", len(inp["host"])):
+        f64, l64, _ = h.record([], lambda: eng.compress(inp["host"], result=res), True)
+    if res.backend != hybrid.Backend.CPU_LIBZSTD or any(l64.values()):
+        _fail(f"phase 4g: AUTO on 64 KB took {res.backend.name} with launches {l64}")
+    _same_golden(f64, g7["host_frame"], "HybridEngine AUTO's 64 KB frame (native engine)")
+    show("AUTO, 64 KB host bytes (native engine frame == JAX golden)", res)
+    t1m = torch.frombuffer(bytearray(data[: 1 << 20]), dtype=torch.uint8).to(dev)
+    if hybrid.detect_location(t1m) != hybrid.DataLocation.DEVICE:
+        _fail("phase 4g: a CUDA tensor is not DEVICE")
+    res = hybrid.HybridResult()
+    base = h.peak_base()
+    with prof.scope("4g hybrid AUTO 1 MiB CUDA tensor", 1 << 20, sync=t1m):
+        ft, paths["hybrid_device"], _ = h.record([], lambda: eng.compress(t1m, result=res), True)
+    peak_t = h.peak_gib(base)
+    if res.backend != hybrid.Backend.TPU_KERNELS:
+        _fail(f"phase 4g: a CUDA tensor was routed to {res.backend.name}")
+    h.must_launch(paths["hybrid_device"], ("roll", "concat", "greedy", "rep", "chain"),
+                  "phase 4g HybridEngine CUDA tensor")
+    show(f"AUTO, 1 MiB uint8 CUDA tensor (DEVICE; peak device memory {peak_t})", res)
+    eng_t = hybrid.HybridEngine(hybrid.HybridConfig(mode=hybrid.RoutingMode.FORCE_TPU), device=dev)
+    if eng_t.decompress(ft) != data[: 1 << 20]:
+        _fail("phase 4g: the CUDA tensor's frame does not decode on the card")
+    acc_frames, acc_items = h.accel
+    t0 = time.perf_counter()
+    with prof.scope("4g hybrid FORCE_TPU decode 128 accel frames", B * N):
+        outs, paths["hybrid_decode_accel"], _ = h.record(
+            [], lambda: [eng_t.decompress(f) for f in acc_frames], True)
+    t_acc = time.perf_counter() - t0
+    if outs != acc_items:
+        _fail("phase 4g: FORCE_TPU decode of the 128 accel frames returned other bytes")
+    h.must_launch(paths["hybrid_decode_accel"], ("decode_huf", "decode_seq", "exec"),
+                  "phase 4g FORCE_TPU accel decode")
+    wide = tc.rehead_wide(bm3_frames[0])
+    res = hybrid.HybridResult()
+    with prof.scope("4g hybrid FORCE_TPU decode wide frame", len(items16[0])):
+        outw, paths["hybrid_decode_wide"], _ = h.record(
+            [], lambda: eng_t.decompress(wide, result=res), True)
+    if outw != items16[0] or res.backend != hybrid.Backend.TPU_KERNELS:
+        _fail("phase 4g: FORCE_TPU decode of the re-headed multi-block frame failed")
+    h.must_launch(paths["hybrid_decode_wide"], ("decode_seq", "exec"),
+                  "phase 4g FORCE_TPU wide decode")
+    print(f"phase 4g: FORCE_TPU decompress of the 128 decode_accel frames, one call a frame "
+          f"(the prepared plan: launches {paths['hybrid_decode_accel']}) == the items, "
+          f"{t_acc:.2f} s; of "
+          f"a 2-block frame re-headed to an 8 MiB window (decompress_batch_tpu: launches "
+          f"{paths['hybrid_decode_wide']}) == its item")
+    show("FORCE_TPU decode of the re-headed frame", res)
+    ada = hybrid.HybridEngine(hybrid.HybridConfig(mode=hybrid.RoutingMode.ADAPTIVE), device=dev)
+    seen = []
+    for label, x in (("64 KB", inp["host"]), ("16 MiB", data)):
+        res = hybrid.HybridResult()
+        ada.compress(x, result=res)
+        seen.append(res.backend)
+        show(f"ADAPTIVE before both histories hold samples (AUTO's route), {label}", res)
+    # Both histories hold samples: the input whose AUTO route the averages overrule.
+    cpu_avg, tpu_avg = ada._avg(hybrid.Backend.CPU_LIBZSTD), ada._avg(hybrid.Backend.TPU_KERNELS)
+    wins = (hybrid.Backend.TPU_KERNELS if tpu_avg > cpu_avg * ada.config.adaptive_hysteresis
+            else hybrid.Backend.CPU_LIBZSTD)
+    label, x = ("64 KB", inp["host"]) if wins == hybrid.Backend.TPU_KERNELS else ("16 MiB", data)
+    res = hybrid.HybridResult()
+    ada.compress(x, result=res)
+    show(f"ADAPTIVE with both histories, {label}", res)
+    if seen != [hybrid.Backend.CPU_LIBZSTD, hybrid.Backend.TPU_KERNELS] or \
+            res.backend != wins or not res.routing_reason.startswith("adaptive"):
+        _fail(f"phase 4g: ADAPTIVE did not switch backend once both histories held samples "
+              f"({[b.name for b in seen]}, then {res.backend.name}: {res.routing_reason})")
+    hf = tpu_zstd_torch.hybrid_compress(inp["host"], device=dev)
+    if tpu_zstd_torch.hybrid_decompress(hf, device=dev) != inp["host"]:
+        _fail("phase 4g: hybrid_compress / hybrid_decompress do not round-trip")
+    print(f"phase 4g: ADAPTIVE switched {label} to {wins.name} once both histories held samples "
+          f"(CPU {cpu_avg:.1f}, card {tpu_avg:.1f} MB/s); hybrid_compress / hybrid_decompress "
+          f"round-trip ({len(hf)} bytes)")
+
+    # 5. NvcompV5BatchManager over the 16 items.
+    nv = nvcomp.NvcompV5BatchManager(level=3, device=dev)
+    base = h.peak_base()
+    with prof.scope("4g nvcomp compress 16 items", sum(map(len, items16))):
+        box, paths["nvcomp"], _ = h.record([], lambda: nv.compress(items16), True)
+    peak_nv = h.peak_gib(base)
+    meta, pos = nv.get_metadata(box)
+    _same_golden(box[:pos], g7["nvcomp_meta"], "the nvCOMP metadata frame")
+    chunks = []
+    for c in meta.compressed_sizes:
+        chunks.append(box[pos : pos + c])
+        pos += c
+    h.same_frames(chunks, gi["frames"], "phase 4g nvCOMP container chunks")
+    t0 = time.perf_counter()
+    if nv.decompress(box) != items16 or nv.decompress_chunk(box, 7) != items16[7]:
+        _fail("phase 4g: the nvCOMP container does not decode to the items")
+    t_nvd = time.perf_counter() - t0
+    print(f"phase 4g: NvcompV5BatchManager(level=3): the container ({len(box)} bytes) is the "
+          f"metadata frame == JAX golden and the 16 frames == JAX golden; decompress (host "
+          f"decoder) and decompress_chunk(7) == the items ({t_nvd:.2f} s); launches "
+          f"{paths['nvcomp']}; peak device memory {peak_nv}")
+
+    # 6. The OOM ladder: BatchManager(level=3) over the 16 items under a
+    # memory cap. The caching allocator checks its cap against the memory it
+    # holds from the card (reserved), and earlier phases leave tensors whose
+    # segments' free space serves part of a new call, so the cap is the
+    # reserved memory plus 0.75 of the reserved growth the same call needs
+    # unconstrained (its allocated peak is printed beside).
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = h.peak_base()
+    reserved0 = torch.cuda.memory_reserved()
+    manager.compress_items(items16, CompressionConfig.from_level(3), device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grow = torch.cuda.max_memory_reserved() - reserved0
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    reserved0 = torch.cuda.memory_reserved()
+    cap = reserved0 + int(0.75 * grow)
+    bm = manager.BatchManager(level=3, device=dev)
+    how = (f"cap {cap / 2**30:.3f} GiB of {total / 2**30:.1f} (reserved {reserved0 / 2**30:.3f} "
+           f"+ 0.75 x the unconstrained call's reserved growth {grow / 2**30:.3f}; its "
+           f"allocated peak {peak / 2**30:.3f})")
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        with prof.scope("4g BatchManager under the cap", sum(map(len, items16))):
+            res_o, paths["oom_ladder"], _ = h.record([], lambda: bm.compress_batch(items16), True)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    if bm.degradations == 0:
+        # The cap did not bite: inject the error at the call, as the CPU test does.
+        orig = manager.compress_items
+
+        def oom(its, *a, **k):
+            if len(its) > 1:
+                raise torch.cuda.OutOfMemoryError("injected")
+            return orig(its, *a, **k)
+
+        manager.compress_items = oom
+        try:
+            bm = manager.BatchManager(level=3, device=dev)
+            res_o, paths["oom_ladder"], _ = h.record([], lambda: bm.compress_batch(items16), True)
+        finally:
+            manager.compress_items = orig
+        how += "; it did not bite, so the error was injected at the call"
+    h.same_frames([r.output for r in res_o], gi["frames"], "phase 4g OOM ladder")
+    if bm.degradations < 1:
+        _fail("phase 4g: the OOM ladder counted no split")
+    if bm.host_fallbacks:
+        _fail(f"phase 4g: the OOM ladder finished {bm.host_fallbacks} items on the host")
+    print(f"phase 4g: BatchManager(level=3) over the 16 items, {how}: {bm.degradations} splits, "
+          f"{bm.host_fallbacks} items finished on the host, every frame == JAX golden; "
+          f"launches {paths['oom_ladder']}")
+    prof.disable()
+
+    # 7. Adaptive levels; AdaptiveLevelSelector.config_for feeds a Manager on the card.
+    got = [[adaptive.select_adaptive_level(d, p) for p in adaptive.Preference]
+           for d in inp["adaptive"]]
+    if got != g7["adaptive"]:
+        _fail(f"phase 4g: select_adaptive_level gave {got}, the JAX golden {g7['adaptive']}")
+    sel = adaptive.AdaptiveLevelSelector(adaptive.Preference.RATIO)
+    cfg_a = sel.config_for(inp["adaptive"][0])
+    base = h.peak_base()
+    fa, paths["adaptive_manager"], _ = h.record(
+        [], lambda: manager.Manager(config=cfg_a, device=dev).compress(inp["adaptive"][0]), True)
+    peak_a = h.peak_gib(base)
+    h.must_launch(paths["adaptive_manager"], ("roll", "greedy", "rep", "chain", "opt"),
+                  "phase 4g adaptive Manager")
+    if eng_t.decompress(fa) != inp["adaptive"][0]:
+        _fail("phase 4g: the adaptive-level frame does not decode on the card")
+    print(f"phase 4g: select_adaptive_level (corpus, random, one byte) x (SPEED, BALANCED, "
+          f"RATIO) == JAX golden {got}; config_for(corpus, RATIO) -> level {cfg_a.level}: "
+          f"Manager.compress(1 MiB) on the card, {len(fa)} bytes, decoded on the card; "
+          f"launches {paths['adaptive_manager']}; peak device memory {peak_a}")
+
+    # 8. The profiler's report over steps 4-6.
+    print(f"phase 4g: profiler report (steps 4-6): {json.dumps(prof.report())}")
+
+    # 9. Sharding in an NCCL group of one rank.
+    dist.init_process_group("nccl" if torch.device(dev).type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=dev)
+        blocks_np = np.frombuffer(data, np.uint8).reshape(B, N)
+        lens_np = np.full(B, N, np.int32)
+        base = h.peak_base()
+        (cont, clen, btyp), paths["sharded"], _ = h.record(
+            [], lambda: compress_blocks_sharded(blocks_np, lens_np, DEFAULT_CONFIG, mesh), True)
+        peak_s = h.peak_gib(base)
+        gb = h.golden2["batch"]["blocks"]
+        bad = [b for b in range(B)
+               if (int(btyp[b]), int(clen[b]), _sha(cont[b, : clen[b]].tobytes()))
+               != (gb[b]["btype"], gb[b]["clen"], gb[b]["sha256"])]
+        if bad:
+            _fail(f"phase 4g: compress_blocks_sharded: {len(bad)} blocks differ from the JAX "
+                  f"golden (first {bad[:8]})")
+        fd, paths["distributed"], _ = h.record(
+            [], lambda: compress_batch_distributed(items16, DEFAULT_CONFIG, device=dev), True)
+        h.same_frames(fd, gi["frames"], "phase 4g compress_batch_distributed")
+        h.must_launch(paths["sharded"], ("roll", "concat", "greedy", "rep", "chain"),
+                      "phase 4g sharded")
+        t_sh = h.best_of(lambda: compress_blocks_sharded(blocks_np, lens_np, DEFAULT_CONFIG, mesh))
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 4g: NCCL group of one rank ({mesh}): compress_blocks_sharded(128 x 128 KB, "
+          f"DEFAULT_CONFIG) == every block of the JAX golden ({t_sh * 1e3:.1f} ms, best of 2; "
+          f"peak device memory {peak_s}); compress_batch_distributed(16 items) == JAX golden; "
+          f"the gather across ranks is shown only by the 2-rank gloo test on the CPU "
+          f"(tests/test_torch_parallel.py)")
+    print(f"phase 4g: done ({time.perf_counter() - t4g:.1f} s)")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -485,17 +971,31 @@ def main() -> int:
     golden4 = json.loads((ROOT / "tests" / "golden" / "torch_slice4.json").read_text())
     golden5 = json.loads((ROOT / "tests" / "golden" / "torch_slice5.json").read_text())
     golden6 = json.loads((ROOT / "tests" / "golden" / "torch_slice6.json").read_text())
+    golden7 = json.loads((ROOT / "tests" / "golden" / "torch_slice7.json").read_text())
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # --- 1. build ------------------------------------------------------------------
+    # The kernels (nvcc) and the native host library (g++) build side by side.
+    import concurrent.futures
+
+    from tpu_zstd_torch.utils import native
+
     t0 = time.perf_counter()
-    _kernels.library()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        host_lib = ex.submit(native.get_native)
+        _kernels.library()
+        if host_lib.result() is None:
+            _fail("build: no C++ compiler for the native host library")
     info = _kernels.build_info
     built = f"nvcc {info['seconds']:.2f} s" if "seconds" in info else "library already built"
     print(f"build: {built}; load {time.perf_counter() - t0:.2f} s -> {info['library']}")
+    hinfo = native.build_info
+    print(f"build: native host library "
+          + (f"{hinfo['compiler']} {hinfo['seconds']:.2f} s" if hinfo else "already built")
+          + f" -> {native.library_path()}")
     for line in info["ptxas"].splitlines():
         if "Compiling entry" in line or "Used" in line:
             print("ptxas:", line.split("ptxas info    :")[-1].strip())
@@ -1635,7 +2135,8 @@ def main() -> int:
     k7_round = None if dev16["K7"] is None else dev16["K7"] / nr16
     print(f"time [{card}]: 16 MiB frame, Manager(execution_path=TPU_BATCH).decompress "
           f"{t_d16:.3f} s = {len(data) / t_d16 / 1e9:.4f} GB/s, of which the host parse "
-          f"(parse_batch, pure Python) {t_p16:.3f} s; the device half (decode_parsed: {nr16} "
+          f"(parse_batch, native Huffman literals) {t_p16:.3f} s; the device half "
+          f"(decode_parsed: {nr16} "
           f"rounds staged, K7 serially, K8, history carried to {hdr16.window_size}, drained "
           f"{decompress.DRAIN_BEHIND} rounds behind) {best16:.3f} s = "
           f"{len(data) / best16 / 1e9:.4f} GB/s (best of 2); K7 / K8 launches "
@@ -1926,6 +2427,14 @@ def main() -> int:
           f"(best of 2)")
     print(f"phase 4f: done ({time.perf_counter() - t4f:.1f} s)")
 
+    # --- 4g. the last modules: the native host runtime, HybridEngine, nvCOMP, the OOM
+    # ladder, adaptive levels, the profiler, sharding over torch.distributed ---------
+    paths4g = phase_4g(types.SimpleNamespace(
+        card=card, dev=dev, data=data, golden2=golden2, golden5=golden5, golden7=golden7,
+        torch_cases=torch_cases, frame16=frame16, bm3=bm3, accel=(frames, items),
+        record=record, must_launch=must_launch, peak_base=peak_base, peak_gib=peak_gib,
+        same_frames=same_frames, best_of=best_of, decodes=decodes))
+
     # --- 5. times at DEFAULT_CONFIG -------------------------------------------------------
     dt, peak = batch_ms(cfg)
     body = int(clens.sum())
@@ -2146,6 +2655,7 @@ def main() -> int:
                     "launches_slice1": launches1.get(name, 0),
                     "launches_level19": launches19.get(name, 0),
                     "launches_windows": {p_: l_.get(name, 0) for p_, l_ in win_launches.items()},
+                    "launches_4g": {p_: l_.get(name, 0) for p_, l_ in paths4g.items()},
                     "plain_kind": PLAIN_KIND.get(name, "torch ops on the card"),
                     **extra.get(name, {}),
                 }

@@ -17,7 +17,10 @@ streaming compressor, `compress_with_dict`), K10 also on
 the calls of opt_card_calls (its hard calls, OPT_HARD and OPT_HARD_WIDE:
 every row kind at 16397 x 1024, seg 1, 33, 1000 and 4096, cap 127 at mm
 32, mm = cap; OPT_FAST_WIDE, every row of which must take the fast path;
-seeded rows; rows that offer every length). Skips
+seeded rows; rows that offer every length), `HybridEngine`'s routes on the
+card (the case hybrid_routes; a CUDA tensor is DEVICE and compresses on the
+card) and `compress_blocks_sharded` in an NCCL group of one rank, each
+against the CPU's output. Skips
 without one: a CUDA kernel has no CPU mode. Integer outputs: exact
 equality; the K5 state chains on their live range, the decode kernels
 up to nsym, nseq and out_len. (One test item, like the other
@@ -110,6 +113,43 @@ def test_cuda_kernels_match_plain():
     _check_decode_kernels(dev)
     _check_fused_route_kernels(dev)
     _check_windows(dev)
+    _check_surface(dev)
+
+
+def _check_surface(dev):
+    """HybridEngine's routes on the card equal the CPU's; a CUDA tensor is
+    DEVICE and takes the card; the sharded compress in an NCCL group of one
+    rank equals the CPU's, block for block."""
+    import torch.distributed as dist
+
+    from tpu_zstd_torch.api import hybrid
+    from tpu_zstd_torch.parallel import sharding
+
+    i = torch_cases.CASES["hybrid_routes"].inputs()
+    assert torch_cases.digest(torch_cases._hybrid_run(hybrid, config, i, device=dev)) == \
+        torch_cases.digest(torch_cases._hybrid_run(hybrid, config, i, device="cpu"))
+    data = make_corpus(70000)
+    t = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    res = hybrid.HybridResult()
+    frame = hybrid.HybridEngine(device=dev).compress(t, result=res)
+    assert hybrid.detect_location(t) == hybrid.DataLocation.DEVICE
+    assert res.backend == hybrid.Backend.TPU_KERNELS
+    assert frame == manager.compress_items([data], config.CompressionConfig.from_level(3),
+                                           device="cpu")[0]
+    cfg = pipeline.PipelineConfig(block_size=4096, hash_log=13, mf_win_log=0)
+    blocks = np.frombuffer(make_corpus(13 * 4096), np.uint8).reshape(13, 4096).copy()
+    lengths = np.full(13, 4096, np.int32)
+    want = sharding.compress_blocks_sharded(blocks, lengths, cfg, sharding.make_mesh(device="cpu"))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(device=dev)
+        assert mesh.distributed and mesh.size == 1
+        got = sharding.compress_blocks_sharded(blocks, lengths, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+    for b in range(13):
+        assert np.array_equal(got[0][b, : got[1][b]], want[0][b, : want[1][b]]), b
 
 
 def _check_windows(dev):

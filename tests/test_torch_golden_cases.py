@@ -28,22 +28,29 @@ batch with repeat offsets carried across blocks, an 8 MiB window without a
 content size, skippable frames and a checksum, the streaming decoder fed in
 1-, 7- and 4096-byte chunks, `Manager` on both routes, the top-level
 functions, `BatchManager.decompress_batch` with a corrupt item, the size
-estimates and validators, streaming XXH64 and XXH32); stock libzstd
-(`zstandard`) decodes every port frame.
+estimates and validators, streaming XXH64 and XXH32) and the last modules
+(the native host runtime: XXH64/32, the frame assembler, the Huffman stream
+decoder against the reference's Python chain, the native engine's frames
+and their decode; `HybridEngine`'s routing matrix, its ADAPTIVE switch, its
+frames and decode routes; adaptive levels; the nvCOMP container; the OOM
+split-and-retry of `BatchManager`); stock libzstd (`zstandard`) decodes
+every port frame.
 
-This file imports neither JAX nor the JAX package and compiles nothing; it
-runs in a few seconds. It holds nine items: pytest-xdist's `--dist loadfile`
+This file imports neither JAX nor the JAX package and compiles nothing but
+the port's native host library, which g++ builds in the background while
+the first topics run. It holds nine items: pytest-xdist's `--dist loadfile`
 queues files by item count, largest first, so with nine items it queues
 beside the nine-item reference files, after every reference file with more
 items, and the reference files keep the order and the workers they have
 without it. The live comparisons against the JAX package
 (tests/test_torch_{kernels,parse,fse,pipeline,fse_custom,huffman,
-manager,accel,decode,optimal,api}.py) also hold the recorded digests against the JAX
-package's live output.
+manager,accel,decode,optimal,api,windows}.py) also hold the recorded
+digests against the JAX package's live output.
 """
 
 import ast
 import pathlib
+import threading
 
 import pytest
 import torch
@@ -83,18 +90,33 @@ TOPICS = {
                        "accel_records", "accel_items_16k", "accel_items_16k_checksum",
                        "decompress_batch_accel", "decompress_batch_plain",
                        "decompress_batch_zstd", "decompress_multiblock", "host_decode",
-                       "decompress_batch_tpu", "streaming_decode"],
+                       "decompress_batch_tpu", "streaming_decode", "hybrid_routes",
+                       "adaptive_levels", "nvcomp_container", "batch_degraded"],
     "level_frames": ["frame_level1_checksum", "frame_level5", "items_level3_checksum", "xxh64",
                      "items_level7", "items_level12", "items_level19", "items_level22",
                      "frame_whole_block", "host_compress", "manager_surface", "items_ldm",
                      "items_history_level3", "items_history_level19", "streaming_compress",
-                     "train_dictionary", "dict_frames", "items_rung_edge"],
+                     "train_dictionary", "dict_frames", "items_rung_edge", "native_runtime",
+                     "native_engine"],
 }
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _torch_threads():
     torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_build():
+    """Start the build of the native host library (a g++ subprocess) while
+    the first topics run; a case that needs it waits on the loader's lock,
+    and a failed build raises again in that case."""
+    from tpu_zstd_torch.utils import native
+
+    build = threading.Thread(target=native.get_native, daemon=True)
+    build.start()
+    yield
+    build.join()
 
 
 @pytest.fixture(scope="module")

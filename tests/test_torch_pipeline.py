@@ -190,12 +190,51 @@ def _check_port_imports_no_jax_and_no_reference_package():
         "format/xxhash", "api/config", "api/manager", "ops/decode", "ops/decode_lanes",
         "ops/exec", "api/decompress", "format/accel", "format/bitstream", "format/huffman",
         "format/sequences", "format/frame", "format/fse", "format/lz77", "ops/opt", "ops/sort",
-        "ops/match", "ops/deposit", "dictionary")} <= rel
+        "ops/match", "ops/deposit", "dictionary", "utils/__init__", "utils/native",
+        "utils/profiler", "api/hybrid", "api/adaptive", "api/nvcomp", "parallel/__init__",
+        "parallel/sharding", "parallel/multihost")} <= rel
     for f in files:
         banned = ("jax", "jaxlib", "tpu_zstd") + (("zstandard",) if f.parent != ROOT else ())
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in banned, f"{f.relative_to(ROOT)} imports {mod}"
+
+
+def _parent_chain(node) -> int:
+    n = 0
+    while isinstance(node, ast.Attribute) and node.attr == "parent":
+        n, node = n + 1, node.value
+    return n
+
+
+def _check_port_reaches_no_reference_path():
+    """No source of the package names a path into the JAX package
+    (`tpu_zstd/`) or the repository's csrc/ build (`csrc/build`,
+    `libtpu_zstd_native`) outside its docstrings, nor climbs above the
+    package with `.parent`; the kernel and host libraries build from the
+    package's own sources into its own _build/."""
+    from tpu_zstd_torch.ops import _kernels
+    from tpu_zstd_torch.utils import native
+
+    pkg = ROOT / "tpu_zstd_torch"
+    for f in sorted(pkg.rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        depth = len(f.relative_to(pkg).parts)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not any(b in node.value for b in ("tpu_zstd/", "csrc/build",
+                                                         "libtpu_zstd_native")), (f, node.value)
+            assert _parent_chain(node) <= depth, f"{f.relative_to(ROOT)} climbs above the package"
+    for path in (native.SRC_DIR, native.BUILD_DIR, native.library_path(), _kernels.CSRC_DIR,
+                 _kernels.BUILD_DIR):
+        assert path.resolve().is_relative_to(pkg), path
+    assert not list(native.SRC_DIR.glob("*.cu")) and sorted(
+        p.name for p in native.SRC_DIR.iterdir()) == sorted(native.SOURCES)
 
 
 def test_port_end_to_end(corpus):
@@ -210,4 +249,5 @@ def test_port_end_to_end(corpus):
     _check_corpus_copy_equals_bench()
     _check_golden_files()
     _check_port_imports_no_jax_and_no_reference_package()
+    _check_port_reaches_no_reference_path()
     torch_cases.check_live("pipeline")

@@ -3338,36 +3338,27 @@ def _manager_digest(paths, host_frame, dev_frame, dec, stats, top, top_dec, bfra
 
 
 def _manager_ref(i):
-    """The reference's Manager, except where it reaches its native C++
-    engine: the host route is its format/frame.py `compress` with the
-    parameters Manager._compress_cpu builds, and the stats are summed from
-    the outputs as Manager counts them."""
+    """The reference's Manager: the host route is its Manager._compress_cpu
+    (its native C++ engine, as the port's), and the stats are summed from
+    the outputs as Manager counts them (its decode half would try libzstd
+    first)."""
     import tpu_zstd as tj
     from tpu_zstd.api import config, decompress, manager
     from tpu_zstd.format import frame, xxhash
 
     cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=16384,
                               cpu_threshold=MANAGER_THRESHOLD)
-
-    def host(data, c):
-        return frame.compress(data, frame.CompressParams(
-            level=c.level, hash_log=min(c.hash_log, 16), search_depth=c.search_depth,
-            min_match=c.min_match, lazy=c.strategy >= 4, block_size=c.block_size,
-            checksum=c.checksum != config.ChecksumPolicy.NONE))
-
     m = manager.Manager(config=cfg)
     paths = [int(m.select_execution_path(n)) for n in (0, MANAGER_THRESHOLD - 1,
                                                        MANAGER_THRESHOLD, 1 << 30)]
-    host_frame = host(i["small"], cfg)
+    host_frame = m._compress_cpu(i["small"])
     dev_frame, = manager.compress_items_tpu([i["big"]], cfg)
     dec = [frame.decompress(host_frame, verify_checksum=False),
            frame.decompress(dev_frame, verify_checksum=False),
            *decompress.decompress_batch_tpu([dev_frame, host_frame], verify_checksum=False)]
     stats = [len(i["small"]) + len(i["big"]), len(host_frame) + len(dev_frame), 2,
              sum(max(1, -(-len(d) // cfg.block_size)) for d in (i["small"], i["big"])), 2, 2]
-    c1 = dataclasses.replace(config.CompressionConfig.from_level(1),
-                             checksum=config.ChecksumPolicy.COMPUTE)
-    top = host(i["small"], c1)
+    top = tj.compress(i["small"], level=1, checksum=True)
     items = i["batch_items"]
     bm = manager.BatchManager(config=cfg)
     bframes = [it.output for it in bm.compress_batch(items)]
@@ -3386,6 +3377,399 @@ def _manager_ref(i):
 
 
 case("manager_surface", "api", _manager_inputs, _manager_port, _manager_ref)
+
+
+# --- The last modules: native runtime, hybrid engine, adaptive levels, nvCOMP, OOM ----
+# Group "surface" (tests/test_torch_api.py re-checks it against the JAX package).
+# Floats are compared by their float64 bits.
+
+
+def _f64(xs) -> np.ndarray:
+    return np.asarray(xs, np.float64).view(np.int64)
+
+
+XXH_LENS = (0, 1, 3, 4, 7, 8, 31, 32, 33, 100, 1000, 65537)
+
+
+def _native_inputs():
+    """Seeded buffers for XXH64/32 (at seeds 0 and 2^64 - 1, 0 and 2^32 -
+    1); a batch of blocks for the frame assembler (Raw, RLE, Compressed, an
+    empty Raw block, checksums and none); Huffman streams of 100, 256, 257,
+    300 and 5000 symbols from the port's host encoder with their decode
+    tables, one of them cut short, one with a zero last byte and one read
+    for more symbols than it holds."""
+    from tpu_zstd_torch.format import huffman
+
+    rng = np.random.default_rng(1801)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in XXH_LENS]
+    B, W = 6, 64
+    contents = rng.integers(0, 256, (B, W), dtype=np.uint8)
+    lens = np.array([40, 1, 64, 0, 17, 1], np.int32)
+    types = np.array([2, 1, 0, 0, 2, 1], np.int32)
+    raw_lens = np.array([1000, 300, 64, 0, 900, 5], np.int32)
+    firsts, counts = np.array([0, 2, 5], np.int32), np.array([2, 3, 1], np.int32)
+    headers = [b"\x28\xb5\x2f\xfd\x20\x10", b"HDR-B", b"H"]
+    checks = [b"ck00", b"ck01", b"ck02"]
+    streams = []
+    for n, alpha in ((100, 9), (256, 30), (257, 200), (300, 4), (5000, 60)):
+        sym = rng.integers(0, alpha, n).astype(np.uint8).tobytes()
+        ct = huffman.build_ctable(np.bincount(np.frombuffer(sym, np.uint8), minlength=256))
+        weights, _ = huffman.lengths_to_weights(ct.lengths)
+        dt = huffman.build_dtable(weights)
+        streams.append((huffman.encode_stream(sym, ct), dt, n))
+    s, dt, n = streams[-1]
+    bad = [(s[: len(s) // 2], dt, n), (s[:-1] + b"\x00", dt, n), (s, dt, n + 40)]
+    return {"bufs": bufs, "asm": (contents, lens, types, raw_lens, firsts, counts, headers,
+                                  checks), "streams": streams + bad}
+
+
+def _python_join(contents, lens, types, raw_lens, firsts, counts, headers, checks):
+    out = b""
+    for f, (first, cnt) in enumerate(zip(firsts, counts)):
+        out += headers[f]
+        for b in range(first, first + cnt):
+            last = int(b == first + cnt - 1)
+            size = int(raw_lens[b]) if types[b] == 1 else int(lens[b])
+            out += ((size << 3) | (int(types[b]) << 1) | last).to_bytes(3, "little")
+            out += contents[b, : 1 if types[b] == 1 else lens[b]].tobytes()
+        if checks is not None:
+            out += checks[f]
+    return out
+
+
+def _native_run(native, decode_stream, i, chain_only):
+    def halves(vs):  # 64-bit values as (high, low) 32-bit words
+        return [w for v in vs for w in (v >> 32, v & 0xFFFFFFFF)]
+
+    out = {"xxh64": halves(native.xxh64(b) for b in i["bufs"]),
+           "xxh64_seed": halves(native.xxh64(b, (1 << 64) - 1) for b in i["bufs"]),
+           "xxh32": [native.xxh32(b) for b in i["bufs"]],
+           "xxh32_seed": [native.xxh32(b, (1 << 32) - 1) for b in i["bufs"]]}
+    a = i["asm"]
+    for k, checks in enumerate((a[7], None)):
+        blob = native.assemble_frames(*a[:7], checks)
+        out[f"assembled{k}"] = _u8(blob)
+        out[f"assembled{k}_equals_python_join"] = [blob == _python_join(*a[:7], checks)]
+    fast = []
+    for k, (stream, dt, n) in enumerate(i["streams"]):
+        packed = (dt.symbol.astype(np.int32) << 8) | dt.nb_bits.astype(np.int32)
+        if chain_only:  # the Python chain: did it decode?
+            fast.append(int(not len(_err(lambda: decode_stream(stream, dt, n)))))
+        else:
+            fast.append(int(native.huf_decode_stream(stream, packed, dt.table_log, n)
+                            is not None))
+        err = _err(lambda: decode_stream(stream, dt, n))
+        out[f"huf{k}"] = err if len(err) else _u8(decode_stream(stream, dt, n))
+    out["huf_decoded"] = fast
+    return out
+
+
+def _native_port(i):
+    from tpu_zstd_torch.format import huffman
+    from tpu_zstd_torch.utils import native
+
+    assert native.get_native() is not None
+    return _native_run(native, huffman.decode_stream, i, chain_only=False)
+
+
+def _native_ref(i):
+    """The reference's native runtime; its Huffman streams through its
+    Python chain alone (the native path patched out), so the port's native
+    decoder is held against the chain."""
+    from tpu_zstd.format import huffman
+    from tpu_zstd.utils import native
+
+    orig = native.huf_decode_stream
+    native.huf_decode_stream = lambda *a, **k: None
+    try:
+        return _native_run(native, huffman.decode_stream, i, chain_only=True)
+    finally:
+        native.huf_decode_stream = orig
+
+
+case("native_runtime", "surface", _native_inputs, _native_port, _native_ref)
+
+NATIVE_RUNS = ((1, False, 0), (3, True, 0), (19, False, 16384), (3, False, 4096))
+
+
+def _native_engine_inputs():
+    data = _mix(1802, 40000)
+    return {"items": [data] * len(NATIVE_RUNS), "garbage": _mix(1803, 64)}
+
+
+def _native_engine_run(native, host_decompress, i):
+    out = {}
+    for k, (level, checksum, bs) in enumerate(NATIVE_RUNS):
+        eng = native.NativeEngine.create(level, checksum=checksum, block_size=bs)
+        data = i["items"][k]
+        f = eng.compress(data)
+        out[f"frame{k}"] = f
+        out[f"stats{k}"] = list(eng.stats())
+        out[f"engine_dec{k}"] = [eng.decompress(f, len(data)) == data,
+                                 eng.decompress(i["garbage"], 1000) is None,
+                                 eng.decompress(f, len(data) - 1) is None]
+        out[f"host_dec{k}"] = [host_decompress(f) == data]
+        eng.reset()
+        out[f"stats_reset{k}"] = list(eng.stats())
+    return out
+
+
+def _native_engine_port(i):
+    from tpu_zstd_torch.format import frame
+    from tpu_zstd_torch.utils import native
+
+    return _native_engine_run(native, frame.decompress, i)
+
+
+def _native_engine_ref(i):
+    from tpu_zstd.format import frame
+    from tpu_zstd.utils import native
+
+    return _native_engine_run(native, frame.decompress, i)
+
+
+case("native_engine", "surface", _native_engine_inputs, _native_engine_port, _native_engine_ref)
+
+HYBRID_N = 4096  # block size of the hybrid cases' compression config
+HYBRID_BATCH = 5000  # tpu_batch_threshold lowered so that both routes run at test sizes
+ROUTE_SIZES = (0, 1, (64 << 10) - 1, 64 << 10, HYBRID_BATCH - 1, HYBRID_BATCH, (4 << 20) - 1,
+               4 << 20, 16 << 20)
+
+
+def _hybrid_inputs():
+    """Sizes around both thresholds for the routing matrix; a small and a
+    large host input (both routes at the lowered threshold); a decode_accel
+    frame (the prepared plan, chunk-parallel), a 2-block frame re-headed to
+    an 8 MiB window (the plan refuses it: decompress_batch_tpu), a
+    truncated frame (the host parse refuses it: the host decoder)."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        from tpu_zstd_torch.api import config, manager
+
+        cfg = dataclasses.replace(config.CompressionConfig.from_level(3), block_size=HYBRID_N)
+        small, big = _mix(1804, 1200), _mix(1805, HYBRID_BATCH + 1000)
+        acc, = manager.compress_items([small], dataclasses.replace(cfg, decode_accel=True),
+                                      device="cpu")
+        two, = manager.compress_items([big[:HYBRID_N + 1000]], cfg, device="cpu")
+        return {"small": small, "big": big, "accel": acc, "wide": rehead_wide(two),
+                "wide_data": big[:HYBRID_N + 1000], "cut": two[: len(two) // 2]}
+
+    return make
+
+
+def _hybrid_run(hy, cfg_mod, i, **dev):
+    H, R, L = hy.HybridEngine, hy.RoutingMode, hy.DataLocation
+    comp = dataclasses.replace(cfg_mod.CompressionConfig.from_level(3), block_size=HYBRID_N)
+    out = {}
+    routes, reasons = [], []
+    for mode in R:
+        eng = H(hy.HybridConfig(mode=mode), compression=comp, **dev)
+        for loc in L:
+            for is_c in (True, False):
+                for n in ROUTE_SIZES:
+                    b, why = eng.decide_route(n, loc, is_c)
+                    routes.append(int(b))
+                    reasons.append(why)
+    out["routes"] = routes
+    out["reasons"] = _u8("|".join(dict.fromkeys(reasons)).encode())
+    # The ADAPTIVE switch on seeded histories (MB/s), then AUTO's fall-through.
+    eng = H(hy.HybridConfig(mode=R.ADAPTIVE), compression=comp, **dev)
+    adaptive = []
+    for cpu, tpu in (([], [500.0]), ([100.0], [130.0]), ([100.0], [110.0, 140.0]),
+                     ([100.0, 300.0], [200.0])):
+        for bk, vals in ((hy.Backend.CPU_LIBZSTD, cpu), (hy.Backend.TPU_KERNELS, tpu)):
+            eng._history[bk].clear()
+            eng._history[bk].extend(vals)
+        b, why = eng.decide_route(1 << 10, L.HOST, True)
+        adaptive.append(f"{int(b)}:{why}")
+    out["adaptive"] = _u8("|".join(adaptive).encode())
+    cfg_h = dict(tpu_batch_threshold=HYBRID_BATCH)
+    frames = {}
+    for name, mode, data in (("auto_small", R.AUTO, i["small"]), ("auto_big", R.AUTO, i["big"]),
+                             ("force_tpu", R.FORCE_TPU, i["small"]),
+                             ("force_cpu", R.FORCE_CPU, i["big"])):
+        eng = H(hy.HybridConfig(mode=mode, **cfg_h), compression=comp, **dev)
+        res = hy.HybridResult()
+        frames[name] = eng.compress(np.frombuffer(data, np.uint8), result=res)
+        out[f"{name}_route"] = [int(res.backend), res.input_size, res.output_size]
+        out[f"{name}_frame"] = _u8(frames[name])
+    eng = H(hy.HybridConfig(mode=R.AUTO, **cfg_h), compression=comp, **dev)
+    out["batch_frames"] = _u8(b"".join(eng.compress_batch([i["small"], i["big"]])))
+    eng_t = H(hy.HybridConfig(mode=R.FORCE_TPU), compression=comp, **dev)
+    decoded = []
+    for f, want, engines in ((i["accel"], i["small"], (eng, eng_t)),
+                             (i["wide"], i["wide_data"], (eng, eng_t)),
+                             (frames["auto_big"], i["big"], (eng,)),
+                             (frames["force_cpu"], i["big"], (eng,))):
+        for e in engines:
+            res = hy.HybridResult()
+            decoded.append([int(e.decompress(f, result=res) == want), int(res.backend)])
+    res = hy.HybridResult()
+    out["cut_err"] = _err(lambda: eng_t.decompress(i["cut"], result=res))
+    out["cut_route"] = _u8(f"{int(res.backend)}:{res.routing_reason}".encode())
+    out["decoded"] = decoded
+    out["batch_decoded"] = [
+        int(e.decompress_batch([i["accel"], frames["force_tpu"]]) == [i["small"]] * 2)
+        for e in (eng, eng_t)]
+    out["batch_cut_err"] = _err(lambda: eng_t.decompress_batch([i["accel"], i["cut"]]))
+    out["locations"] = [int(hy.detect_location(x)) for x in (
+        b"", bytearray(3), memoryview(b"ab"), np.zeros(3, np.uint8), [1, 2], "text")]
+    return out
+
+
+def _hybrid_port(i):
+    from tpu_zstd_torch.api import config, hybrid
+
+    out = _hybrid_run(hybrid, config, i, device="cpu")
+    assert hybrid.detect_location(torch.zeros(3, dtype=torch.uint8)) == hybrid.DataLocation.HOST
+    return out
+
+
+def _hybrid_ref(i):
+    """The reference's HybridEngine with its CPU backend taken by its own
+    native engine (the port's by design; the reference's is libzstd)."""
+    from tpu_zstd.api import config, hybrid
+    from tpu_zstd.utils.native import NativeEngine
+
+    orig = hybrid.HybridEngine._cpu_compress
+    hybrid.HybridEngine._cpu_compress = (
+        lambda self, data: NativeEngine.create(self.compression.level).compress(data))
+    try:
+        return _hybrid_run(hybrid, config, i)
+    finally:
+        hybrid.HybridEngine._cpu_compress = orig
+
+
+case("hybrid_routes", "surface", _hybrid_inputs(), _hybrid_port, _hybrid_ref)
+
+
+def _adaptive_inputs():
+    rng = np.random.default_rng(1806)
+    text = make_corpus(80000)
+    return {"datas": [text, rng.integers(0, 256, 80000, dtype=np.uint8).tobytes(),
+                      b"\x07" * 70000, b"", b"abcde", rng.integers(0, 4, 5000, np.uint8).tobytes(),
+                      text[:40000] + rng.integers(0, 256, 40000, dtype=np.uint8).tobytes(),
+                      bytes(range(256)) * 300]}
+
+
+def _adaptive_run(ad, i):
+    out = {}
+    for k, d in enumerate(i["datas"]):
+        prof = ad.analyze(d)
+        out[f"profile{k}"] = _f64([prof.entropy_bits, prof.repetition, prof.pattern_density,
+                                   prof.compressibility])
+        out[f"levels{k}"] = [ad.select_adaptive_level(d, p) for p in ad.Preference] + [
+            int(ad.is_compressible(d)), int(prof.compressible)]
+        sel = ad.AdaptiveLevelSelector(ad.Preference.RATIO)
+        cfg = sel.config_for(d)
+        out[f"config{k}"] = [-1 if v is None else int(v) for v in dataclasses.asdict(cfg).values()]
+        out[f"last_profile{k}"] = _f64([sel.last_profile.entropy_bits])
+    return out
+
+
+def _adaptive_port(i):
+    from tpu_zstd_torch.api import adaptive
+
+    return _adaptive_run(adaptive, i)
+
+
+def _adaptive_ref(i):
+    from tpu_zstd.api import adaptive
+
+    return _adaptive_run(adaptive, i)
+
+
+case("adaptive_levels", "surface", _adaptive_inputs, _adaptive_port, _adaptive_ref)
+
+
+def _nvcomp_inputs():
+    rng = np.random.default_rng(1808)
+    return {"chunks": [_mix(1809, 3000), b"", b"\x05" * 2000,
+                       rng.integers(0, 256, 1000, dtype=np.uint8).tobytes(), make_corpus(2500)]}
+
+
+def _nvcomp_run(nv, cfg_mod, i, **dev):
+    cfg = dataclasses.replace(cfg_mod.CompressionConfig.from_level(3), block_size=HYBRID_N)
+    m = nv.NvcompV5BatchManager(config=cfg, **dev)
+    chunks = i["chunks"]
+    box = m.compress(chunks)
+    meta, pos = m.get_metadata(box)
+    out = {"container": _u8(box), "async_equal": [m.compress_async(chunks)() == box],
+           "meta": [meta.version, meta.chunk_count, meta.total_uncompressed, pos,
+                    *meta.uncompressed_sizes, *meta.compressed_sizes],
+           "decompress_equal": [m.decompress(box) == chunks],
+           "chunks_equal": [m.decompress_chunk(box, k) == c for k, c in enumerate(chunks)],
+           "capacity": [m.get_compress_temp_size(4, 1 << 17), m.get_decompress_temp_size(4, 9),
+                        *(m.get_max_compressed_chunk_size(n) for n in (0, 1, 131072, 10**6))],
+           "nvcomp_errors": [m.status_to_nvcomp_error(st) for st in cfg_mod.Status]}
+    bad_version = box[:8] + (2).to_bytes(4, "little") + box[12:]
+    for k, fn in enumerate((lambda: m.get_metadata(box[:5]),
+                            lambda: m.get_metadata(b"\x28\xb5\x2f\xfd" + box[4:]),
+                            lambda: m.get_metadata(bad_version),
+                            lambda: m.decompress_chunk(box, len(chunks)),
+                            lambda: m.decompress_chunk(box, -1))):
+        out[f"err{k}"] = _err(fn)
+    return out
+
+
+def _nvcomp_port(i):
+    from tpu_zstd_torch.api import config, nvcomp
+
+    return _nvcomp_run(nvcomp, config, i, device="cpu")
+
+
+def _nvcomp_ref(i):
+    from tpu_zstd.api import config, nvcomp
+
+    return _nvcomp_run(nvcomp, config, i)
+
+
+case("nvcomp_container", "surface", _nvcomp_inputs, _nvcomp_port, _nvcomp_ref)
+
+
+def _degraded_inputs():
+    return {"items": [_mix(1810 + k, 800 + 400 * k) for k in range(4)]}
+
+
+def _degraded_run(manager, cfg_mod, name, oom, i, **dev):
+    """BatchManager.compress_batch with the module's batch compressor
+    raising `oom` for any batch of more than one item."""
+    cfg = dataclasses.replace(cfg_mod.CompressionConfig.from_level(3), block_size=HYBRID_N)
+    orig = getattr(manager, name)
+    sizes = []
+
+    def flaky(items, *a, **k):
+        sizes.append(len(items))
+        if len(items) > 1:
+            raise oom
+        return orig(items, *a, **k)
+
+    setattr(manager, name, flaky)
+    try:
+        bm = manager.BatchManager(config=cfg, **dev)
+        res = bm.compress_batch(i["items"])
+    finally:
+        setattr(manager, name, orig)
+    return {**{f"frame{k}": it.output for k, it in enumerate(res)},
+            "degradations": [bm.degradations], "batch_sizes": sizes,
+            "statuses": [int(it.status) for it in res]}
+
+
+def _degraded_port(i):
+    from tpu_zstd_torch.api import config, manager
+
+    return _degraded_run(manager, config, "compress_items",
+                         torch.cuda.OutOfMemoryError("CUDA out of memory"), i, device="cpu")
+
+
+def _degraded_ref(i):
+    from tpu_zstd.api import config, manager
+
+    return _degraded_run(manager, config, "compress_items_tpu",
+                         RuntimeError("RESOURCE_EXHAUSTED: Out of memory"), i)
+
+
+case("batch_degraded", "surface", _degraded_inputs, _degraded_port, _degraded_ref)
 
 
 # --- Slice 6: cross-block windows, dictionaries, sample_log, dec_min_ml -------------
@@ -3828,3 +4212,29 @@ def _rung_ref(i):
 
 
 case("items_rung_edge", "windows", _rung_inputs, _rung_port, _rung_ref)
+
+
+# --- Slice 7: the inputs of tests/golden/torch_slice7.json (chip_smoke.py phase 4g) --
+
+SLICE7_SEED = 1870
+SLICE7_NATIVE = 4 << 20  # make_corpus(4 MiB): the native engine's frames
+SLICE7_LEVELS = (1, 3, 19)
+SLICE7_HOST = 64 << 10  # the hybrid engine's host route: the corpus's first 64 KB
+# decide_route calls of phase 4g: (mode, size, location, is_compress).
+SLICE7_ROUTES = ((0, 16 << 20, 1, True), (0, SLICE7_HOST, 1, True), (0, 1 << 20, 2, True),
+                 (0, 1 << 20, 1, False), (2, 1 << 20, 1, False), (1, 16 << 20, 2, True),
+                 (3, 16 << 20, 1, True), (3, SLICE7_HOST, 1, True))
+
+
+def slice7_inputs(data: bytes) -> dict:
+    """Seeded buffers for XXH64/32, the inputs of the native frames, the
+    adaptive levels' inputs (the corpus, seeded random bytes, a run of one
+    byte; 1 MiB each) and the hybrid host route's input, from the bench
+    corpus `data`."""
+    rng = np.random.default_rng(SLICE7_SEED)
+    return {"xxh": [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                    for n in (0, 7, 32, 1000, 1 << 20)],
+            "native": make_corpus(SLICE7_NATIVE),
+            "adaptive": [data[: 1 << 20], rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(),
+                         b"\xa5" * (1 << 20)],
+            "host": data[:SLICE7_HOST]}

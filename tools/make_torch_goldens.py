@@ -50,11 +50,21 @@ before anything is written. Targets (default: slice2 cases):
   dictionary's too; libzstd decodes every frame first (the history frame
   and the dictionary frames with their raw-content dictionary).
 
+- slice7 -> tests/golden/torch_slice7.json, the last modules
+  (tests/torch_cases.py `slice7_inputs`): XXH64 and XXH32 of seeded
+  buffers, the JAX package's `NativeEngine` frames at levels 1, 3 and 19 of
+  make_corpus(4 MiB) and at level 3 of the corpus's first 64 KB (the hybrid
+  engine's host route), `select_adaptive_level` at each preference of the
+  corpus, seeded random bytes and a run of one byte, the metadata frame of
+  `NvcompV5BatchManager` over slice2's 16 items (their sizes and slice2's
+  frame lengths) and `HybridEngine.decide_route` on phase 4g's calls. No
+  XLA compile: seconds.
+
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py [slice1] [slice2] [slice3] [slice4]
-        [slice5] [slice6] [multiblock] [cases]
+        [slice5] [slice6] [slice7] [multiblock] [cases]
 
 About 4 minutes for slice1, 7 for slice2, slice3 and slice5, 13 for slice4
-(on 8 cores) and 10 for cases on the CPU. Give slice1-slice5 a fresh process (or
+(on 8 cores) and about 25 for cases on the CPU. Give slice1-slice5 a fresh process (or
 list it first): after the ~40 case compiles, XLA:CPU's compile of the
 full-width batch failed for lack of memory mappings in the same process.
 For the same reason `cases` runs each group of cases in a process of its
@@ -368,6 +378,47 @@ def slice6() -> None:
     _write("torch_slice6.json", doc)
 
 
+def slice7() -> None:
+    from tpu_zstd.api import adaptive, hybrid
+    from tpu_zstd.api.nvcomp import NvcompV5BatchManager
+    from tpu_zstd.utils import native
+
+    import torch_cases
+
+    if native.get_native() is None:
+        raise SystemExit("the JAX package's native library is unavailable (no g++)")
+    N = DEFAULT_CONFIG.block_size
+    data = make_corpus(BATCH_BLOCKS * N)
+    inp = torch_cases.slice7_inputs(data)
+    doc = {"corpus": f"make_corpus({BATCH_BLOCKS} * {N})", "seed": torch_cases.SLICE7_SEED}
+    doc["xxh"] = [{"len": len(b), "xxh64": native.xxh64(b), "xxh64_seed": native.xxh64(b, 7),
+                   "xxh32": native.xxh32(b), "xxh32_seed": native.xxh32(b, 7)}
+                  for b in inp["xxh"]]
+    frames = []
+    for level in torch_cases.SLICE7_LEVELS:
+        eng = native.NativeEngine.create(level)
+        f = eng.compress(inp["native"])
+        _decodes(f, inp["native"], f"the native level-{level} frame")
+        frames.append({"level": level, "len": len(f), "sha256": _sha(f)})
+    doc["native"] = {"corpus": f"make_corpus({torch_cases.SLICE7_NATIVE})", "frames": frames}
+    f = native.NativeEngine.create(3).compress(inp["host"])
+    _decodes(f, inp["host"], "the native 64 KB frame")
+    doc["host_frame"] = {"level": 3, "size": len(inp["host"]), "len": len(f), "sha256": _sha(f)}
+    doc["adaptive"] = [[adaptive.select_adaptive_level(d, p) for p in adaptive.Preference]
+                       for d in inp["adaptive"]]
+    g2 = json.loads((GOLDEN / "torch_slice2.json").read_text())["items"]
+    meta = NvcompV5BatchManager._build_metadata_frame(g2["sizes"],
+                                                      [f["len"] for f in g2["frames"]])
+    doc["nvcomp_meta"] = {"len": len(meta), "sha256": _sha(meta)}
+    routes = []
+    for mode, size, loc, is_c in torch_cases.SLICE7_ROUTES:
+        eng = hybrid.HybridEngine(hybrid.HybridConfig(mode=hybrid.RoutingMode(mode)))
+        b, why = eng.decide_route(size, hybrid.DataLocation(loc), is_c)
+        routes.append({"call": [mode, size, loc, is_c], "backend": int(b), "reason": why})
+    doc["routes"] = routes
+    _write("torch_slice7.json", doc)
+
+
 def _cases_group(group: str) -> None:
     """Print the JSON digests of one group's cases as the last stdout line."""
     import torch_cases
@@ -423,7 +474,8 @@ def multiblock() -> None:
 
 
 TARGETS = {"slice1": slice1, "slice2": slice2, "slice3": slice3, "slice4": slice4,
-           "slice5": slice5, "slice6": slice6, "multiblock": multiblock, "cases": cases}
+           "slice5": slice5, "slice6": slice6, "slice7": slice7, "multiblock": multiblock,
+           "cases": cases}
 
 
 def main(argv: list[str]) -> None:

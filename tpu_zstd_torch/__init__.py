@@ -10,14 +10,19 @@ its plain PyTorch version instead.
 Module map:
   tpu_zstd_torch.format  host-side RFC 8878 codec (numpy, pure Python)
   tpu_zstd_torch.ops     the device pipeline (torch ops and the CUDA kernels)
-  tpu_zstd_torch.api     managers, decoders, configuration, status codes
+  tpu_zstd_torch.api     managers, decoders, the hybrid engine, configuration,
+                         status codes, adaptive levels, the nvCOMP container
   tpu_zstd_torch.dictionary  dictionary training, compression against one
+  tpu_zstd_torch.parallel    batch sharding over torch.distributed
+  tpu_zstd_torch.utils   the native host runtime (C++, built at first use),
+                         the stage profiler
 
 The one-shot functions below route as the reference's do: `compress` and
 `decompress` through `Manager` (inputs under 1 MiB compress on the host,
 larger ones on the card; `decompress` decodes on the host),
-`compress_batch` and `decompress_batch` through `BatchManager`. Each takes
-`device=None`, meaning CUDA, and raises without it.
+`compress_batch` and `decompress_batch` through `BatchManager`,
+`hybrid_compress` and `hybrid_decompress` through `HybridEngine`. Each
+takes `device=None`, meaning CUDA, and raises without it.
 """
 
 from __future__ import annotations
@@ -25,14 +30,20 @@ from __future__ import annotations
 import torch
 
 from .api import (
+    Backend,
     BatchItem,
     BatchManager,
     ChecksumPolicy,
     CompressionConfig,
     CompressionStats,
+    DataLocation,
     DecompressPlan,
     ExecutionPath,
+    HybridConfig,
+    HybridEngine,
+    HybridResult,
     Manager,
+    RoutingMode,
     Status,
     Strategy,
     StreamingDecompressor,
@@ -40,6 +51,7 @@ from .api import (
     compress_items,
     decompress_batch_to_device,
     decompress_batch_tpu,
+    detect_location,
     estimate_compressed_size,
     prepare_decompress_batch,
 )
@@ -87,6 +99,17 @@ def decompress_batch(items: list[bytes], device=None) -> list[bytes]:
     that does not decode)."""
     with BatchManager(device=device) as m:
         return [it.output for it in m.decompress_batch(items)]
+
+
+def hybrid_compress(data, level: int = 3, device=None) -> bytes:
+    """Compress with the hybrid engine's routing (host engine or the card)."""
+    return HybridEngine(compression=CompressionConfig.from_level(level),
+                        device=device).compress(data)
+
+
+def hybrid_decompress(data, max_output_size: int | None = None, device=None) -> bytes:
+    """Decompress with the hybrid engine's routing."""
+    return HybridEngine(device=device).decompress(data, max_output_size)
 
 
 def validate_compressed_data(data: bytes) -> bool:

@@ -1,6 +1,7 @@
 """User-facing surface of the port: configuration, status codes, the
-managers (the streaming compressor too) and the decoders (the counterpart
-of tpu_zstd/api, less the hybrid engine)."""
+managers (the streaming compressor too), the decoders and the hybrid engine
+(the counterpart of tpu_zstd/api; `adaptive` and `nvcomp` are modules of
+their own, as in the reference)."""
 
 from .config import (
     ChecksumPolicy,
@@ -10,6 +11,15 @@ from .config import (
     Status,
     Strategy,
     estimate_compressed_size,
+)
+from .hybrid import (
+    Backend,
+    DataLocation,
+    HybridConfig,
+    HybridEngine,
+    HybridResult,
+    RoutingMode,
+    detect_location,
 )
 from .decompress import (
     DecompressPlan,
@@ -27,14 +37,20 @@ from .manager import (
 )
 
 __all__ = [
+    "Backend",
     "BatchItem",
     "BatchManager",
     "ChecksumPolicy",
     "CompressionConfig",
     "CompressionStats",
+    "DataLocation",
     "DecompressPlan",
     "ExecutionPath",
+    "HybridConfig",
+    "HybridEngine",
+    "HybridResult",
     "Manager",
+    "RoutingMode",
     "Status",
     "Strategy",
     "StreamingDecompressor",
@@ -42,6 +58,7 @@ __all__ = [
     "compress_items",
     "decompress_batch_to_device",
     "decompress_batch_tpu",
+    "detect_location",
     "estimate_compressed_size",
     "prepare_decompress_batch",
 ]

@@ -1,11 +1,13 @@
 """Managers: single-shot, batch and streaming surfaces of the port.
 
 Counterpart of tpu_zstd/api/manager.py: `Manager` (single-shot, routed by
-size: inputs under `cpu_threshold` compress with the host codec, larger
-ones on the card; `decompress` on the card through `decompress_batch_tpu`
-on the device execution paths, else with the host decoder),
-`BatchManager` (`compress_batch`, `compress_batch_async`,
-`decompress_batch`, `decompress_batch_to_device`), `StreamingManager` (one
+size: inputs under `cpu_threshold` compress on the host, with the native
+engine (utils/native.py) or, where no C++ compiler exists, the pure-Python
+codec; larger ones on the card; `decompress` on the card through
+`decompress_batch_tpu` on the device execution paths, else with the host
+decoder), `BatchManager` (`compress_batch` with the OOM split-and-retry
+ladder, `compress_batch_async`, `decompress_batch`,
+`decompress_batch_to_device`), `StreamingManager` (one
 frame across `compress_chunk` calls, each chunk's blocks reaching back into
 the chunks before it; its decode half is a `StreamingDecompressor`) and
 `StreamingDecompressor` (incremental host decode of arbitrary chunks).
@@ -16,9 +18,11 @@ raise without it.
 blocks flatten into one (B, 128 KB) batch padded to a power-of-two bucket,
 the batch runs through `compress_blocks_staged`, the contents are trimmed
 on the device to the largest non-Raw block before the copy to the host, and
-each item's frame is assembled in Python (Raw blocks take the caller's
-bytes). With `decode_accel` every frame carries a trailing skippable frame
-of decoder checkpoints (format/accel.py), as the reference writes it.
+each item's frame is assembled: by the native assembler where no trim
+applies and no item is empty (as the reference's condition has it), else in
+Python (Raw blocks take the caller's bytes). With `decode_accel` every
+frame carries a trailing skippable frame of decoder checkpoints
+(format/accel.py), as the reference writes it.
 Levels 1-22 run (levels 7 and up with the long-range pass, 16 and up with
 the optimal parse). With `enable_ldm` or `history` each block sees a window
 of the bytes before it in its stream (`compress_blocks_dict`): with
@@ -39,6 +43,7 @@ from ..constants import (
     BLOCK_COMPRESSED,
     BLOCK_RAW,
     BLOCK_RLE,
+    BLOCK_SIZE_MAX,
     REPCODE_INIT,
     SKIPPABLE_MAGIC_MAX,
     SKIPPABLE_MAGIC_MIN,
@@ -56,6 +61,7 @@ from ..ops.pipeline import (
     compress_blocks_staged,
     resolve_device,
 )
+from ..utils.native import NativeEngine, assemble_frames
 from .config import (
     ChecksumPolicy,
     CompressionConfig,
@@ -190,6 +196,21 @@ def compress_items(
     contents = contents_d[:, :width].cpu().numpy()
 
     checksum = cfg.checksum != ChecksumPolicy.NONE
+    outs = None
+    if width == N and all(len(d) for d in items):
+        outs = _assemble_native(items, spans, contents, clens, btypes, lens_np, cfg, checksum)
+    if outs is None:
+        outs = _assemble_python(items, spans, contents, clens, btypes, lens_np, cfg, checksum)
+    if accel_meta:
+        return [f + m for f, m in zip(outs, accel_meta)]
+    return outs
+
+
+def _assemble_python(items, spans, contents, clens, btypes, lens_np, cfg,
+                     checksum) -> list[bytes]:
+    """Each item's frame joined in Python; Raw blocks take the caller's
+    bytes, an empty item is one empty Raw block."""
+    N = cfg.block_size
     outs: list[bytes] = []
     for (first, nb), data in zip(spans, items):
         tail = [content_checksum(data).to_bytes(4, "little")] if checksum else []
@@ -214,9 +235,30 @@ def compress_items(
                 parts.append(((clen << 3) | (btype << 1) | last).to_bytes(3, "little"))
                 parts.append(contents[b, :clen].tobytes())
         outs.append(b"".join(parts + tail))
-    if accel_meta:
-        return [f + m for f, m in zip(outs, accel_meta)]
     return outs
+
+
+def _assemble_native(items, spans, contents, clens, btypes, lens_np, cfg,
+                     checksum) -> list[bytes] | None:
+    """Every item's frame joined by the native assembler (contents whole:
+    Raw blocks from the device's copy), then split at the frame sizes that
+    the block sizes give; None where no C++ compiler exists."""
+    headers = [write_frame_header(len(d), checksum, dict_id=cfg.dict_id,
+                                  window_log=cfg.window_log) for d in items]
+    checks = [content_checksum(d).to_bytes(4, "little") for d in items] if checksum else None
+    firsts = np.array([s[0] for s in spans], dtype=np.int32)
+    counts = np.array([s[1] for s in spans], dtype=np.int32)
+    blob = assemble_frames(contents, clens, btypes, lens_np[: len(clens)], firsts, counts,
+                           headers, checks)
+    if blob is None:
+        return None
+    # Each block is its 3-byte header and its payload (one byte for RLE).
+    ends = np.concatenate(([0], np.cumsum(3 + np.where(btypes == BLOCK_RLE, 1, clens),
+                                          dtype=np.int64)))
+    sizes = (np.array([len(h) for h in headers], dtype=np.int64) + 4 * checksum
+             + ends[firsts + counts] - ends[firsts])
+    offs = np.concatenate(([0], np.cumsum(sizes))).tolist()
+    return [blob[a:b] for a, b in zip(offs[:-1], offs[1:])]
 
 
 def _accel_frames(out, btypes, spans, B: int, pcfg: PipelineConfig) -> list[bytes]:
@@ -332,19 +374,25 @@ class Manager:
         return out
 
     def _compress_cpu(self, data: bytes) -> bytes:
-        """The host route: the pure-Python codec (format/frame.py
-        `compress`) with the parameters the reference's manager gives it
-        (the reference tries its native C++ engine first; the port has
-        none)."""
-        return host_frame.compress(data, host_frame.CompressParams(
-            level=self.config.level,
-            hash_log=min(self.config.hash_log, 16),
-            search_depth=self.config.search_depth,
-            min_match=self.config.min_match,
-            lazy=self.config.strategy >= Strategy.LAZY,
-            block_size=self.config.block_size,
-            checksum=self.config.checksum != ChecksumPolicy.NONE,
-        ))
+        """The host route (`host_compress`: the native engine, as the
+        reference's manager tries first)."""
+        return host_compress(data, self.config, self.config.checksum != ChecksumPolicy.NONE,
+                             self.config.block_size)
+
+
+def host_compress(data: bytes, cfg: CompressionConfig, checksum: bool = False,
+                  block_size: int = 0) -> bytes:
+    """One frame on the host at cfg's level: the native engine
+    (utils/native.py; block_size 0 keeps its 128 KB), or where no C++
+    compiler exists the pure-Python codec (format/frame.py `compress`) with the
+    parameters the reference's manager gives it."""
+    eng = NativeEngine.create(cfg.level, checksum=checksum, block_size=block_size)
+    if eng is not None:
+        return eng.compress(data)  # raises where the engine fails
+    return host_frame.compress(data, host_frame.CompressParams(
+        level=cfg.level, hash_log=min(cfg.hash_log, 16), search_depth=cfg.search_depth,
+        min_match=cfg.min_match, lazy=cfg.strategy >= Strategy.LAZY,
+        block_size=block_size or BLOCK_SIZE_MAX, checksum=checksum))
 
 
 def _decompress_host(data: bytes, max_output_size: int | None = None,
@@ -356,14 +404,45 @@ def _decompress_host(data: bytes, max_output_size: int | None = None,
     return host_frame.decompress(data, verify_checksum=verify)
 
 
+def _compress_items_degraded(items: list[bytes], cfg: CompressionConfig, on_degrade=None,
+                             device=None) -> list[bytes]:
+    """compress_items with the reference's degradation ladder: an
+    out-of-memory error on the device halves the batch and retries each
+    half, down to single items; a single item that still runs out goes to
+    the host (`HybridEngine` forced to the CPU: the native engine).
+    on_degrade(n) is called once for each batch of n items that ran out.
+    Only torch.cuda.OutOfMemoryError starts the ladder (the reference
+    matches "OOM" in any message, which would also catch a kernel's
+    failure); any other error propagates."""
+    try:
+        return compress_items(items, cfg, device=device)
+    except torch.cuda.OutOfMemoryError:
+        pass  # retry outside the handler: its traceback holds the failed batch's tensors
+    if on_degrade is not None:
+        on_degrade(len(items))
+    if len(items) > 1:
+        mid = len(items) // 2
+        return (_compress_items_degraded(items[:mid], cfg, on_degrade, device)
+                + _compress_items_degraded(items[mid:], cfg, on_degrade, device))
+    from .hybrid import HybridConfig, HybridEngine, RoutingMode
+
+    eng = HybridEngine(HybridConfig(mode=RoutingMode.FORCE_CPU), compression=cfg, device=device)
+    return [eng.compress(items[0])]
+
+
 class BatchManager:
-    """Batched many-buffer compression (one device batch per call) and
-    batch decompression, on `device` (None means CUDA; raises without it)."""
+    """Batched many-buffer compression (one device batch per call, split and
+    retried on an out-of-memory error; `degradations` counts the batches
+    that ran out, `host_fallbacks` the single items among them that the
+    native engine then compressed on the host) and batch decompression, on
+    `device` (None means CUDA; raises without it)."""
 
     def __init__(self, level: int = 3, config: CompressionConfig | None = None, device=None):
         self.config = config or CompressionConfig.from_level(level)
         self.device = resolve_device(device)
         self.stats = CompressionStats()
+        self.degradations = 0
+        self.host_fallbacks = 0
 
     def __enter__(self) -> "BatchManager":
         return self
@@ -374,7 +453,13 @@ class BatchManager:
     def compress_batch(self, items: list[BatchItem] | list[bytes]) -> list[BatchItem]:
         t0 = time.perf_counter()
         norm = [it if isinstance(it, BatchItem) else BatchItem(it) for it in items]
-        outs = compress_items([it.data for it in norm], self.config, device=self.device)
+
+        def on_degrade(n: int) -> None:
+            self.degradations += 1
+            self.host_fallbacks += n == 1  # a single item goes to the host
+
+        outs = _compress_items_degraded([it.data for it in norm], self.config, on_degrade,
+                                        self.device)
         for it, out in zip(norm, outs):
             it.output = out
             it.status = Status.SUCCESS

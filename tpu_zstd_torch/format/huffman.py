@@ -9,9 +9,13 @@ decoders. Streams are written in reverse position order and read
 backward; a decode step peeks table_log bits (zero-filled past the stream
 start, as libzstd does), looks up (symbol, nb_bits) and consumes nb_bits.
 
-`decode_stream` reads a few bytes at the cursor per symbol instead of
-shifting one big integer of the whole stream, so it runs in time linear in
-the stream; its results and errors are the reference's.
+`decode_stream` hands streams of more than 256 symbols to the native
+decoder (utils/native.py `huf_decode_stream`), as the reference does; the
+Python chain decodes short streams and any stream the native decoder finds
+malformed, so errors keep their Python diagnostics. The chain reads a few
+bytes at the cursor per symbol instead of shifting one big integer of the
+whole stream, so it runs in time linear in the stream; its results and
+errors are the reference's.
 """
 
 from __future__ import annotations
@@ -236,7 +240,15 @@ def encode_stream(data: bytes, ct: HufCTable) -> bytes:
 
 
 def decode_stream(data: bytes, dt: HufDTable, out_len: int) -> bytes:
-    """Decode one backward Huffman bitstream into out_len symbols."""
+    """Decode one backward Huffman bitstream into out_len symbols (natively
+    past 256 symbols where the stream is well formed)."""
+    if out_len > 256:
+        from ..utils.native import huf_decode_stream
+
+        packed = (dt.symbol.astype(np.int32) << 8) | dt.nb_bits.astype(np.int32)
+        fast = huf_decode_stream(data, packed, dt.table_log, out_len)
+        if fast is not None:
+            return fast
     if len(data) == 0:
         raise ValueError("empty bitstream")
     if data[-1] == 0:

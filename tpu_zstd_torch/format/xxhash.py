@@ -2,8 +2,9 @@
 §3.1.1: low 32 bits of XXH64(content, seed=0)), host side.
 
 The port's copy of `xxh32`, `xxh64`, `XXH64State` and `content_checksum`
-from tpu_zstd/format/xxhash.py, pure Python only: the reference's native C++
-fast path is not part of the port, so a checksum over a few MB takes seconds.
+from tpu_zstd/format/xxhash.py. `content_checksum` runs the native XXH64
+(utils/native.py) as the reference's does; the pure-Python functions are
+its fallback where no C++ compiler exists, and take seconds over a few MB.
 """
 
 from __future__ import annotations
@@ -210,4 +211,6 @@ class XXH64State:
 
 def content_checksum(data: bytes) -> int:
     """Frame content checksum: low 32 bits of XXH64(content, 0)."""
-    return xxh64(data, 0) & 0xFFFFFFFF
+    from ..utils.native import xxh64 as native_xxh64
+
+    return native_xxh64(data, 0) & 0xFFFFFFFF
